@@ -8,9 +8,10 @@ counterpart in ``dabtools_tpu_torch/ops/sync.py`` and so on.
 
 Rules of the package:
 
-* It imports ``torch`` and never ``jax``.  Host-only NumPy modules of the
-  JAX package (``constants``, ``tables``, ``fic``, ``eti``, ``utils``,
-  ``mod``) are reused; its ``ops``, ``models`` and ``parallel`` are not.
+* It imports ``torch`` and never ``jax``, and nothing of ``dabtools_tpu``.
+  The host-only NumPy modules it needs (``constants``, ``tables``,
+  ``fic``, ``eti``, ``utils``, ``mod`` and ``native/dabhost.cc``) are
+  copies of the JAX package's, identical but for their import lines.
 * Every device function takes tensors on one explicit device.  A CUDA
   tensor reaches the hand-written kernels (``ops/viterbi_cuda.py``) or the
   call raises; a CPU tensor takes the plain PyTorch version of each kernel.

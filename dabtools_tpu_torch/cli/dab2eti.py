@@ -7,7 +7,9 @@ Usage:
 Reads 2.048 Msps IQ from a file or stdin (u8 offset-128 interleaved, s8,
 s16 or complex64) and decodes on ``--torch-device`` (default ``cuda``;
 without CUDA the command fails rather than running on the CPU).  Port of
-``dabtools_tpu/cli/dab2eti.py``'s file/stdin path.
+``dabtools_tpu/cli/dab2eti.py``'s file/stdin path; its input readers
+(``CHUNK``, ``_FORMATS``, ``decode_iq``, ``iter_samples``) are verbatim
+copies.
 """
 
 from __future__ import annotations
@@ -16,16 +18,63 @@ import argparse
 import logging
 import sys
 
+import numpy as np
 import torch
 
-from dabtools_tpu import constants as C
-from dabtools_tpu.cli.dab2eti import iter_samples
-from dabtools_tpu.eti.edi import EdiWriter
+from dabtools_tpu_torch import constants as C
+from dabtools_tpu_torch.eti.edi import EdiWriter
 from dabtools_tpu_torch.models.receiver import DabReceiver
 
 log = logging.getLogger("dabtools_tpu_torch.dab2eti")
 
 _NOT_PORTED = "is not ported to the PyTorch receiver yet (see ROADMAP.md)"
+
+CHUNK = 1 << 22
+
+
+_FORMATS = {        # bytes per complex sample
+    "u8": 2,        # RTL-SDR: unsigned 8-bit interleaved, offset 128
+    "s8": 2,        # HackRF: signed 8-bit interleaved
+    "s16": 4,       # Airspy/SDRplay: signed 16-bit interleaved
+    "cf32": 8,      # complex64
+}
+
+
+def decode_iq(raw: bytes, fmt: str) -> np.ndarray:
+    """Wire bytes -> samples.  u8 stays uint8 (converted on device —
+    4x less host->device traffic than cf32); the rest become complex64.
+
+    Truncated captures are tolerated: a trailing partial sample is
+    dropped rather than raising (interrupted SDR recordings)."""
+    raw = raw[:len(raw) // _FORMATS[fmt] * _FORMATS[fmt]]
+    if fmt == "u8":
+        return np.frombuffer(raw, dtype=np.uint8)
+    if fmt == "s8":
+        a = np.frombuffer(raw, dtype=np.int8).astype(np.float32)
+        return (a[0::2] + 1j * a[1::2]).astype(np.complex64) / 128.0
+    if fmt == "s16":
+        a = np.frombuffer(raw, dtype="<i2").astype(np.float32)
+        return (a[0::2] + 1j * a[1::2]).astype(np.complex64) / 32768.0
+    return np.frombuffer(raw, dtype=np.complex64)
+
+
+def iter_samples(path: str, fmt: str):
+    f = sys.stdin.buffer if path == "-" else open(path, "rb")
+    itemsize = _FORMATS[fmt]
+    carry = b""   # pipes deliver arbitrary read sizes; keep partial samples
+    try:
+        while True:
+            raw = f.read(CHUNK)
+            if not raw:
+                return
+            raw = carry + raw
+            usable = len(raw) // itemsize * itemsize
+            raw, carry = raw[:usable], raw[usable:]
+            if raw:
+                yield decode_iq(raw, fmt)
+    finally:
+        if path != "-":
+            f.close()
 
 
 def main(argv=None) -> int:

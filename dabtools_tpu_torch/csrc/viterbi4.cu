@@ -2,11 +2,13 @@
 //
 // K1 acs4_kernel replaces dabtools_tpu/ops/viterbi_pallas4.py::_acs4_kernel
 // (launched at _decode4_call, viterbi_pallas4.py:351); K2
-// traceback4_kernel replaces ::_traceback4_kernel (launched at :389).
-// Only the TPU kernel's default semantics are built (select=shuffle,
-// pack=shift4, bm=f32); the plain PyTorch versions that compute the same
-// values are dabtools_tpu_torch/ops/viterbi.py::acs4_plain and
-// ::traceback4_plain.
+// traceback4_kernel replaces ::_traceback4_kernel (launched at :389); K2'
+// traceback4_onehot64_kernel replaces ::_traceback4_kernel_onehot64 (the
+// same launch with traceback="onehot64").  Only the TPU kernel's default
+// ACS semantics are built (select=shuffle, pack=shift4, bm=f32); the
+// plain PyTorch versions that compute the same values are
+// dabtools_tpu_torch/ops/viterbi.py::acs4_plain and ::traceback4_plain
+// (for K2 and K2' alike: the two compute one function).
 //
 // What bounds them on the card.  Both are sequential recursions over the
 // double steps of a codeword (1539 at the flagship's 3078-step MSC
@@ -26,8 +28,13 @@
 // Decisions leave as two __ballot_sync words per warp per step.  K2 runs
 // one thread per lane walking an integer state: the TPU kernel's factored
 // one-hot carry existed only to avoid scalar work on the TPU's vector
-// unit.  Faster layouts (warp-shuffle ACS, coalesced decision tiles) are
-// later work.
+// unit.  K2' keeps the one-hot64 kernel's idea: the survivor state is a
+// 64-wide one-hot spread over one warp per lane, two states per thread
+// (j and 32 + j); warp votes read the active state's input bits and
+// 2-bit decision where the TPU kernel multiplied and reduced over
+// sublanes, and two shuffles move the one-hot to the predecessor.  It does
+// more work per step than K2 and is expected to be slower.  Faster
+// layouts (warp-shuffle ACS, coalesced decision tiles) are later work.
 //
 // Semantics that must match the plain version bit for bit:
 //   * branch metric bm[p*64+t] = (sum_{k<4} w_k s_k) + (sum_{k>=4} w_k s_k)
@@ -142,6 +149,45 @@ __global__ void traceback4_kernel(const uint32_t* __restrict__ dec,
   }
 }
 
+__global__ void __launch_bounds__(128)
+traceback4_onehot64_kernel(const uint32_t* __restrict__ dec,
+                           uint8_t* __restrict__ bits, int B, int T2) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int j = threadIdx.x & 31;
+  if (lane >= B) return;  // warp-uniform: every lane is one whole warp
+  const uint4* dl =
+      reinterpret_cast<const uint4*>(dec + (size_t)lane * T2 * 4);
+  uint8_t* bl = bits + (size_t)lane * 2 * T2;
+  // One-hot carry: lo = state j is the survivor, hi = state 32 + j is.
+  int lo = (j == 0), hi = 0;
+  for (int g = T2 - 1; g >= 0; --g) {
+    const uint4 w = dl[g];  // one address for the whole warp: a broadcast
+    const uint32_t d_lo = ((w.x >> j) & 1u) | (((w.y >> j) & 1u) << 1);
+    const uint32_t d_hi = ((w.z >> j) & 1u) | (((w.w >> j) & 1u) << 1);
+    const uint32_t d_own = lo ? d_lo : (hi ? d_hi : 0u);
+    // Votes over the one-hot: bit 5 of the state, bit 4, the decision.
+    const int u2 = __any_sync(kAll, hi);
+    const int u1 = __any_sync(kAll, (lo | hi) && (j & 16));
+    const int d =
+        __any_sync(kAll, d_own & 1u) | (__any_sync(kAll, d_own & 2u) << 1);
+    if (j == 0) {
+      bl[2 * g] = (uint8_t)u1;
+      bl[2 * g + 1] = (uint8_t)u2;
+    }
+    // Fold away u1, u2: thread k then holds the one-hot of a = k & 15.
+    int f = lo | hi;
+    f |= __shfl_xor_sync(kAll, f, 16);
+    // Predecessor 4a + d: state j has a = j >> 2, state 32 + j has
+    // a = 8 + (j >> 2); both have p = j & 3.
+    const int take = (j & 3) == d;
+    const int a_lo = __shfl_sync(kAll, f, j >> 2);
+    const int a_hi = __shfl_sync(kAll, f, 8 + (j >> 2));
+    lo = take & a_lo;
+    hi = take & a_hi;
+  }
+}
+
 }  // namespace
 
 // C interface, loaded with ctypes (dabtools_tpu_torch/ops/viterbi_cuda.py).
@@ -164,5 +210,15 @@ extern "C" int dab_traceback4(const uint32_t* dec, uint8_t* bits, int B,
   if (B > 0)
     traceback4_kernel<<<(B + threads - 1) / threads, threads, 0,
                         (cudaStream_t)stream>>>(dec, bits, B, T2);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dab_traceback4_onehot64(const uint32_t* dec, uint8_t* bits,
+                                       int B, int T2, void* stream) {
+  const int lanes_per_block = 4;  // one warp per lane
+  if (B > 0)
+    traceback4_onehot64_kernel<<<(B + lanes_per_block - 1) / lanes_per_block,
+                                 32 * lanes_per_block, 0,
+                                 (cudaStream_t)stream>>>(dec, bits, B, T2);
   return (int)cudaGetLastError();
 }

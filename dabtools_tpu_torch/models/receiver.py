@@ -24,12 +24,10 @@ import logging
 import numpy as np
 import torch
 
-from dabtools_tpu import constants as C
-from dabtools_tpu.eti.assemble import EtiAssembler
-from dabtools_tpu.fic.config import Ensemble
-from dabtools_tpu.fic.fig import FigParser
-from dabtools_tpu.tables.puncturing import FIC_PROFILE
-from dabtools_tpu.utils.crc import crc16_ok_batch
+from dabtools_tpu_torch import constants as C
+from dabtools_tpu_torch.eti.assemble import EtiAssembler
+from dabtools_tpu_torch.fic.config import Ensemble
+from dabtools_tpu_torch.fic.fig import FigParser
 from dabtools_tpu_torch.ops.bits import pack_bits
 from dabtools_tpu_torch.ops.fec import (
     depuncture,
@@ -48,6 +46,8 @@ from dabtools_tpu_torch.ops.sync import (
     null_ratio_to_snr_db,
 )
 from dabtools_tpu_torch.ops.viterbi import viterbi_decode_ragged
+from dabtools_tpu_torch.tables.puncturing import FIC_PROFILE
+from dabtools_tpu_torch.utils.crc import crc16_ok_batch
 
 log = logging.getLogger("dabtools_tpu_torch.receiver")
 
@@ -484,7 +484,7 @@ class DabReceiver:
         self._probe = {}
         probe_subs = []
         if self._uep_autoprobe:
-            from dabtools_tpu.tables.puncturing import (
+            from dabtools_tpu_torch.tables.puncturing import (
                 enumerate_uep_candidates)
             for s in dropped:
                 if s.protection_type != "UEP":
@@ -536,7 +536,7 @@ class DabReceiver:
     def _identify_uep_rows(self, out: dict, cif0: int) -> bool:
         """Feed this block's probe rows to ops/uep_probe; True iff a row
         was identified and registered (caller then re-specializes)."""
-        from dabtools_tpu.tables.puncturing import register_uep_profile
+        from dabtools_tpu_torch.tables.puncturing import register_uep_profile
         from dabtools_tpu_torch.ops.uep_probe import identify_uep_profile
         identified = False
         n_rows_blk = self.n_frames * self.mode.n_cifs
@@ -806,7 +806,7 @@ class DabReceiver:
 
     @staticmethod
     def _extra_uep_rows() -> dict:
-        from dabtools_tpu.tables.puncturing import (_UEP_TABLE_33,
+        from dabtools_tpu_torch.tables.puncturing import (_UEP_TABLE_33,
                                                     UEP_PROFILES)
         return {f"{kb}:{lv}": {"regions": [list(r) for r in p.regions],
                                "padding_bits": p.padding_bits}
@@ -878,7 +878,7 @@ class DabReceiver:
         # Re-register extra UEP rows BEFORE activation so the sub-channel
         # is decodable immediately.  A row already present in this
         # process wins over the checkpoint's.
-        from dabtools_tpu.tables.puncturing import (UEP_PROFILES,
+        from dabtools_tpu_torch.tables.puncturing import (UEP_PROFILES,
                                                     register_uep_profile)
         ckpt = from_jax_state(ckpt, self.device)
         for key, d in ckpt.get("uep_rows", {}).items():

@@ -12,13 +12,13 @@ import functools
 import numpy as np
 import torch
 
-from dabtools_tpu import constants as C
-from dabtools_tpu.tables.puncturing import (
+from dabtools_tpu_torch import constants as C
+from dabtools_tpu_torch.tables.puncturing import (
     PuncturingProfile,
     puncture_mask_for_profile,
 )
-from dabtools_tpu.tables.time_interleave import DELAYS
-from dabtools_tpu.utils.prbs import energy_dispersal_bits
+from dabtools_tpu_torch.tables.time_interleave import DELAYS
+from dabtools_tpu_torch.utils.prbs import energy_dispersal_bits
 
 
 @functools.cache

@@ -15,10 +15,10 @@ import math
 
 import torch
 
-from dabtools_tpu.constants import MODE_I, Mode
-from dabtools_tpu.tables.freq_interleave import freq_interleave_map
+from dabtools_tpu_torch.constants import MODE_I, Mode
 from dabtools_tpu_torch.ops.slicing import window_slices
 from dabtools_tpu_torch.ops.sync import _rot
+from dabtools_tpu_torch.tables.freq_interleave import freq_interleave_map
 
 # Clip margin for per-symbol drift window shifts: keeps the per-frame
 # window length fixed.  50 ppm over one Mode I frame is ~10 samples; 64 is

@@ -16,9 +16,9 @@ import math
 import numpy as np
 import torch
 
-from dabtools_tpu.constants import MODE_I, Mode
-from dabtools_tpu.tables.prs import prs_spectrum, prs_time
+from dabtools_tpu_torch.constants import MODE_I, Mode
 from dabtools_tpu_torch.ops.slicing import window_slices
+from dabtools_tpu_torch.tables.prs import prs_spectrum, prs_time
 
 # Where machine-readable output carries an snr_db derived from this,
 # attach SNR_METHOD/SNR_CAVEAT so consumers see the estimator's limits

@@ -16,9 +16,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from dabtools_tpu.tables.puncturing import PuncturingProfile
 from dabtools_tpu_torch.ops.fec import depuncture_gather_map
 from dabtools_tpu_torch.ops.viterbi import viterbi_decode
+from dabtools_tpu_torch.tables.puncturing import PuncturingProfile
 
 log = logging.getLogger("dabtools_tpu_torch.uep_probe")
 

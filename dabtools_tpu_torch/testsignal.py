@@ -1,10 +1,11 @@
 """Known-answer signals for exercising the port: the flagship mux as
 impaired u8 IQ, and coded Viterbi lanes with their messages.
 
-Host-side NumPy, built on the JAX package's NumPy-only transmitter
-modules (``mod.modulator``, ``mod.impairments``, ``mod.convcode``,
-``fic``, ``tables``, ``eti.parse``); like the rest of the port it imports
-no ``jax``.  Used by ``chip_smoke.py`` and the on-card tests.
+Host-side NumPy, built on the port's copies of the transmitter modules
+(``mod.modulator``, ``mod.impairments``, ``mod.convcode``, ``fic``,
+``tables``, ``eti.parse``); like the rest of the port it imports no
+``jax`` and nothing of ``dabtools_tpu``.  Used by ``chip_smoke.py`` and
+the on-card tests.
 """
 
 from __future__ import annotations
@@ -12,25 +13,25 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dabtools_tpu import constants as C
-from dabtools_tpu.eti.parse import EtiParser
-from dabtools_tpu.fic.config import (
+from dabtools_tpu_torch import constants as C
+from dabtools_tpu_torch.eti.parse import EtiParser
+from dabtools_tpu_torch.fic.config import (
     Ensemble,
     Service,
     ServiceComponent,
     Subchannel,
 )
-from dabtools_tpu.fic.fig import build_fibs_for_ensemble
-from dabtools_tpu.mod.convcode import conv_encode
-from dabtools_tpu.mod.impairments import (
+from dabtools_tpu_torch.fic.fig import build_fibs_for_ensemble
+from dabtools_tpu_torch.mod.convcode import conv_encode
+from dabtools_tpu_torch.mod.impairments import (
     awgn,
     carrier_offset,
     quantize_u8,
     timing_offset,
 )
-from dabtools_tpu.mod.modulator import Modulator, SubchannelSource
-from dabtools_tpu.tables.puncturing import FIC_PROFILE, eep_profile
+from dabtools_tpu_torch.mod.modulator import Modulator, SubchannelSource
 from dabtools_tpu_torch.ops.fec import depuncture
+from dabtools_tpu_torch.tables.puncturing import FIC_PROFILE, eep_profile
 
 
 def flagship_ensemble() -> Ensemble:

@@ -1,6 +1,7 @@
-"""The hand-written CUDA Viterbi kernels (K1 ``acs4``, K2 ``traceback4``)
-against their plain PyTorch versions, and the receiver on the card against
-the receiver on the CPU.
+"""The hand-written CUDA Viterbi kernels (K1 ``acs4``, K2 ``traceback4``,
+K2' ``traceback4_onehot64``, K3 ``acs2``, K4 ``traceback2``) against their
+plain PyTorch versions, and the receiver on the card against the receiver
+on the CPU.
 
 Every test needs a CUDA device (marker ``gpu``) and skips without one.
 The file imports no JAX, so on the GPU machine it runs with the port
@@ -17,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from dabtools_tpu.mod.convcode import conv_encode
+from dabtools_tpu_torch.mod.convcode import conv_encode
 from dabtools_tpu_torch.ops import viterbi as V
 
 torch.set_num_threads(2)
@@ -64,6 +65,57 @@ def test_kernels_match_plain(cuda, shape):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(3, 769), (5, 3073), (1, 1)])
+def test_radix2_kernels_match_plain(cuda, shape):
+    """K3/K4 at odd trellis lengths, with a third of the soft bits erased
+    to exactly 0 (ACS ties): decisions, metrics and bits equal the plain
+    versions exactly, and ``viterbi_decode`` runs them once each."""
+    from dabtools_tpu_torch.ops import viterbi_cuda as K
+    batch, n = shape
+    rng = np.random.default_rng(batch * 7 + n)
+    msgs, soft = _noisy_batch(rng, batch, n, scale=0.4)
+    soft[rng.random(soft.shape) < 1 / 3] = 0.0
+    s = torch.from_numpy(soft).to(cuda)
+    b, n4 = s.shape
+    soft4 = s.reshape(b, n4 // 4, 4)
+    ws2 = V._ws2(cuda)
+    dec_k, metric_k = K.acs2(soft4, ws2)
+    dec_p, metric_p = V.acs2_plain(soft4, ws2)
+    torch.testing.assert_close(dec_k, dec_p, rtol=0, atol=0)
+    torch.testing.assert_close(metric_k, metric_p, rtol=0, atol=0)
+    torch.testing.assert_close(K.traceback2(dec_k),
+                               V.traceback2_plain(dec_k), rtol=0, atol=0)
+    n0 = K.acs2_launches, K.traceback2_launches
+    bits, _ = V.viterbi_decode(s)
+    assert (K.acs2_launches, K.traceback2_launches) == (n0[0] + 1,
+                                                        n0[1] + 1)
+    np.testing.assert_array_equal(bits.cpu().numpy(), msgs)
+
+
+@pytest.mark.gpu
+def test_onehot64_traceback_matches_k2(cuda):
+    """K2' on K1's decisions of a ragged batch equals K2 and the plain
+    traceback, and ``traceback="onehot64"`` runs it."""
+    from dabtools_tpu_torch.ops import viterbi_cuda as K
+    rng = np.random.default_rng(6)
+    m1, s1 = _noisy_batch(rng, 6, 768)
+    m2, s2 = _noisy_batch(rng, 3, 3072)
+    soft, lengths = V.ragged_lanes([torch.from_numpy(s1).to(cuda),
+                                    torch.from_numpy(s2).to(cuda)])
+    b, n4 = soft.shape
+    t2 = torch.from_numpy((lengths // 2).astype(np.int32)).to(cuda)
+    dec, _ = K.acs4(soft.reshape(b, n4 // 8, 8), t2, V._ws4(cuda))
+    got = K.traceback4_onehot64(dec)
+    torch.testing.assert_close(got, K.traceback4(dec), rtol=0, atol=0)
+    torch.testing.assert_close(got, V.traceback4_plain(dec), rtol=0, atol=0)
+    n0 = K.traceback4_onehot64_launches
+    bits, _ = V.viterbi_decode4(soft, lengths, traceback="onehot64")
+    assert K.traceback4_onehot64_launches == n0 + 1
+    np.testing.assert_array_equal(bits[:6, :768].cpu().numpy(), m1)
+    np.testing.assert_array_equal(bits[6:].cpu().numpy(), m2)
+
+
+@pytest.mark.gpu
 def test_ragged_dispatch_matches_cpu(cuda):
     """FIC-length and MSC-length lanes in one dispatch: the card's bits
     and metrics equal the CPU's plain decode of the same lanes."""
@@ -98,19 +150,25 @@ def test_kernel_wrappers_check_inputs(cuda):
                ws4)
     with pytest.raises(ValueError):
         K.traceback4(torch.zeros((2, 4, 3), dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):
+        K.traceback4_onehot64(torch.zeros((2, 4, 4), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        K.acs2(torch.zeros((2, 5, 4), device=cuda), V._ws2(cuda)[:64])
+    with pytest.raises(ValueError):
+        K.traceback2(torch.zeros((2, 5, 2), dtype=torch.int64, device=cuda))
 
 
 @pytest.mark.gpu
 def test_receiver_on_card_matches_cpu(cuda):
     """The whole receiver on the card emits the ETI bytes it emits on the
     CPU, and runs K1/K2 once per device step."""
-    from dabtools_tpu.fic.config import (
+    from dabtools_tpu_torch.fic.config import (
         Ensemble,
         Service,
         ServiceComponent,
         Subchannel,
     )
-    from dabtools_tpu.mod.impairments import quantize_u8
+    from dabtools_tpu_torch.mod.impairments import quantize_u8
     from dabtools_tpu_torch.models.receiver import DabReceiver
     from dabtools_tpu_torch.ops import viterbi_cuda as K
     from dabtools_tpu_torch.testsignal import modulate

@@ -7,6 +7,10 @@ The same captures (``tests/test_closed_loop.py``'s ``build_ensemble`` /
 payloads, ETI and EDI streams) must be identical; sync diagnostics agree
 exactly where they are integers and to a stated tolerance where they are
 floats that pass through an FFT.
+
+The port keeps its own copy of the configuration classes, so an ensemble
+crosses from the JAX package's classes to the port's through its dict
+form (``_port``).
 """
 
 import functools
@@ -31,12 +35,18 @@ from dabtools_tpu.mod.impairments import (
     u8_to_complex,
 )
 from dabtools_tpu.models import receiver as jrx
+from dabtools_tpu_torch.fic import config as tconfig
 from dabtools_tpu_torch.models import receiver as trx
 from tests.test_closed_loop import build_ensemble, modulate
 
 torch.set_num_threads(2)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+def _port(ens: Ensemble) -> tconfig.Ensemble:
+    """The JAX package's ensemble as the port's (same configuration)."""
+    return tconfig.Ensemble.from_dict(ens.to_dict())
 
 
 def _impair(x, seed=99, delay=1234):
@@ -138,7 +148,7 @@ def test_eti_stream_identical_to_jax(kind):
     ref = _jax_eti(kind)
     assert len(ref) > 0
     assert tuple(eti) == ref
-    assert rx.ensemble.subchannels == ens.subchannels
+    assert rx.ensemble.subchannels == _port(ens).subchannels
     assert all(s.fib_crc_bad == 0 for s in rx.stats[1:])
     assert rx.device_steps == len(rx.stats) + 1      # one acquisition replay
 
@@ -161,7 +171,7 @@ def test_reconfiguration_stream_identical_to_jax():
     ref = jrx.DabReceiver(n_frames=4).feed(x)
     rx = trx.DabReceiver(n_frames=4, device="cpu")
     eti = rx.feed(x)
-    assert rx.ensemble.subchannels == ens2.subchannels
+    assert rx.ensemble.subchannels == _port(ens2).subchannels
     assert len(eti) == len(ref) > 0
     sent = {r.tobytes() for r in p1[1]} | {r.tobytes() for r in p2[3]}
     seam = 0
@@ -179,9 +189,10 @@ def test_reconfiguration_stream_identical_to_jax():
 
 @pytest.fixture
 def debundled_32_3():
-    """Temporarily remove the bundled (32 kbit/s, P3) UEP row so the
-    autoprobe has to identify it from the signal."""
-    from dabtools_tpu.tables import puncturing as P
+    """Temporarily remove the bundled (32 kbit/s, P3) UEP row from the
+    port's table so its autoprobe has to identify it from the signal (the
+    JAX package's table, which the modulator reads, keeps it)."""
+    from dabtools_tpu_torch.tables import puncturing as P
     saved = P.UEP_PROFILES.pop((32, 3))
     P.enumerate_uep_candidates.cache_clear()
     yield saved
@@ -191,20 +202,20 @@ def debundled_32_3():
 
 def test_uep_autoprobe_identifies_row_and_decodes(debundled_32_3):
     """The port's UEP autoprobe (probe rows deinterleaved on the device,
-    one batched candidate decode, registration, replay with full
-    continuity) under the assertions of the JAX package's
-    ``tests/test_uep_autoprobe.py::TestReceiverAutoprobe``.  (A side by
-    side run with the JAX receiver is left out: its candidate decode
-    alone peaks at several GB.)"""
+    one batched candidate decode, registration in the port's own table,
+    replay with full continuity) under the assertions of the JAX
+    package's ``tests/test_uep_autoprobe.py::TestReceiverAutoprobe``.  (A
+    side by side run with the JAX receiver is left out: its candidate
+    decode alone peaks at several GB.)"""
     from dabtools_tpu.eti.parse import EtiParser
-    from dabtools_tpu.tables import puncturing as P
+    from dabtools_tpu.tables import puncturing as JP
+    from dabtools_tpu_torch.tables import puncturing as P
     ens = Ensemble(
         eid=0x4EA7, label="AUTOPROBE",
         subchannels=(Subchannel.eep(1, 0, 3, "A", 64),
                      Subchannel.uep(9, 48, table_index=2)))   # 32k P3
-    P.UEP_PROFILES[(32, 3)] = debundled_32_3
     x, payload = modulate(ens, 22, seed=5)
-    del P.UEP_PROFILES[(32, 3)]
+    assert (32, 3) not in P.UEP_PROFILES and (32, 3) in JP.UEP_PROFILES
     rx = trx.DabReceiver(n_frames=4, device="cpu")
     eti = rx.feed(x)
     got = P.UEP_PROFILES[(32, 3)]
@@ -243,6 +254,7 @@ def test_checkpoint_resumes_across_packages(direction, tmp_path):
         rx1 = jrx.DabReceiver(n_frames=4)
         eti = rx1.feed(x[:half])
         ckpt = rx1.checkpoint()
+        ckpt["ensemble"] = _port(ckpt["ensemble"])
         rx2 = trx.DabReceiver(n_frames=4, device="cpu")
         rx2.restore(ckpt)
         assert rx2._rings["1"].device.type == "cpu"
@@ -352,16 +364,17 @@ msgs, jobs = S.flagship_codewords(rng, "cpu")
 print(json.dumps({"added": sorted(imported), "names": names,
                   "ran": sorted(jaxmods() - before),
                   "shapes": [list(u8.shape), [list(j.shape) for j in jobs]],
-                  "ref": sorted(m for m in sys.modules if m.startswith((
-                      "dabtools_tpu.ops", "dabtools_tpu.models",
-                      "dabtools_tpu.parallel")))}))
+                  "ref": sorted(m for m in sys.modules
+                                if m == "dabtools_tpu"
+                                or m.startswith("dabtools_tpu."))}))
 """
 
 
 def test_port_imports_no_jax():
     """Importing every module of the port (and chip_smoke.py), and then
     running the smoke's host-side signal helpers, adds no ``jax`` module
-    and none of the JAX package's device modules."""
+    and no module of the JAX package at all: the port runs on its own
+    copies of the host modules."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     r = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300,
@@ -370,6 +383,7 @@ def test_port_imports_no_jax():
     assert "dabtools_tpu_torch.models.receiver" in res["names"]
     assert "dabtools_tpu_torch.ops.viterbi_cuda" in res["names"]
     assert "dabtools_tpu_torch.testsignal" in res["names"]
+    assert "dabtools_tpu_torch.fic.fig" in res["names"]
     assert res["added"] == []
     assert res["ran"] == []
     assert res["ref"] == []

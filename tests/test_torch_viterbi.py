@@ -1,9 +1,11 @@
-"""Parity of the PyTorch port's radix-4 Viterbi with the JAX package.
+"""Parity of the PyTorch port's Viterbi (radix-4 and radix-2) with the JAX
+package.
 
 On the CPU the port runs the plain PyTorch versions of its kernels
-(``acs4_plain``, ``traceback4_plain``); they are held against JAX's
-``viterbi_decode`` (the XLA scan), ``viterbi_decode_ragged`` and the
-radix-4 Pallas kernel in interpret mode, on the same NumPy inputs.
+(``acs4_plain``, ``traceback4_plain``, ``acs2_plain``,
+``traceback2_plain``); they are held against JAX's ``viterbi_decode``
+(the XLA scan), ``viterbi_decode_ragged`` and the radix-4 and radix-2
+Pallas kernels in interpret mode, on the same NumPy inputs.
 Contract: decoded bits exact, path metric within ``rtol=1e-5`` (the
 branch-metric sums are taken in another order than XLA's dot).
 
@@ -20,6 +22,7 @@ from dabtools_tpu.mod.convcode import conv_encode
 from dabtools_tpu.ops import fec as jfec
 from dabtools_tpu.ops import viterbi as jv
 from dabtools_tpu.ops.uep_probe import candidate_metrics as jcandidates
+from dabtools_tpu.ops.viterbi_pallas import viterbi_decode_pallas
 from dabtools_tpu.ops.viterbi_pallas4 import viterbi_decode_pallas4
 from dabtools_tpu.tables.puncturing import (
     FIC_PROFILE,
@@ -57,6 +60,15 @@ def test_tables_match_jax():
     np.testing.assert_array_equal(ws4, jws4)
     np.testing.assert_array_equal(V.transition_matrix(),
                                   jv.transition_matrix())
+    pu, ws = V.acs_matmul_matrices()
+    jpu, jws = jv.acs_matmul_matrices()
+    np.testing.assert_array_equal(pu, jpu)
+    np.testing.assert_array_equal(ws, jws)
+    # K3's sign rows t and 64 + t are transition_matrix rows 4c + 2b + u
+    t = np.arange(64)
+    w = V.transition_matrix()
+    np.testing.assert_array_equal(ws[:64], w[4 * (t & 31) + (t >> 5)])
+    np.testing.assert_array_equal(ws[64:], w[4 * (t & 31) + 2 + (t >> 5)])
     assert V.NEG_INF == jv.NEG_INF
 
 
@@ -149,14 +161,87 @@ def test_bad_lengths_rejected(lengths):
         V.viterbi_decode4(torch.from_numpy(soft), np.array(lengths))
 
 
-def test_odd_trellis_length_not_ported():
-    soft = torch.zeros((1, 4 * 9))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        V.viterbi_decode(soft)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        V.viterbi_decode_ragged([torch.zeros((1, 4 * 10)), soft])
+@pytest.mark.parametrize("n", [3, 769, 1001])
+def test_odd_length_matches_jax(n):
+    """Odd trellis lengths decode radix-2 (``acs2_plain`` /
+    ``traceback2_plain`` on the CPU) as JAX's XLA scan does."""
+    rng = np.random.default_rng(n)
+    msgs, soft = _noisy_batch(rng, 3, n)
+    assert (n + 6) % 2
+    rb, rm = jv.viterbi_decode(jnp.asarray(soft), impl="xla")
+    bits, metric = V.viterbi_decode(torch.from_numpy(soft))
+    assert bits.dtype == torch.uint8 and bits.shape == (3, n)
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(rb))
+    np.testing.assert_allclose(metric.numpy(), np.asarray(rm), rtol=1e-5)
+    np.testing.assert_array_equal(bits.numpy(), msgs)
+
+
+def test_odd_length_matches_pallas():
+    """The radix-2 Pallas kernel (K3/K4) in interpret mode."""
+    rng = np.random.default_rng(57)
+    _, soft = _noisy_batch(rng, 3, 57)
+    pb, pm = viterbi_decode_pallas(jnp.asarray(soft), interpret=True)
+    bits, metric = V.viterbi_decode(torch.from_numpy(soft))
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(pb))
+    np.testing.assert_allclose(metric.numpy(), np.asarray(pm), rtol=1e-5)
     with pytest.raises(ValueError):
-        V.viterbi_decode4(soft)
+        V.viterbi_decode4(torch.from_numpy(soft))   # radix-4 needs even T
+
+
+def test_odd_length_ties_match_jax():
+    """Erasure-heavy, exact-valued soft bits: half the positions are 0 and
+    the rest small integers, so every sum is exact and ACS ties are
+    common; the strict-'>' select must resolve them as JAX does."""
+    rng = np.random.default_rng(21)
+    msgs = rng.integers(0, 2, size=(4, 301), dtype=np.uint8)
+    soft = np.stack([1.0 - 2.0 * conv_encode(m) for m in msgs])
+    soft = soft * rng.integers(1, 3, size=soft.shape)
+    soft[rng.random(soft.shape) < 0.5] = 0.0
+    soft = soft.astype(np.float32)
+    rb, rm = jv.viterbi_decode(jnp.asarray(soft), impl="xla")
+    bits, metric = V.viterbi_decode(torch.from_numpy(soft))
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(rb))
+    np.testing.assert_allclose(metric.numpy(), np.asarray(rm), rtol=1e-5)
+
+
+def test_ragged_with_odd_length_matches_jax():
+    """A mix that holds an odd T decodes batch by batch, as JAX's does."""
+    rng = np.random.default_rng(14)
+    fic_msgs, fic_tx = _punctured(rng, FIC_PROFILE, 3, 0.4)
+    fic = np.array(jfec.depuncture(jnp.asarray(fic_tx), FIC_PROFILE))
+    odd_msgs, odd = _noisy_batch(rng, 2, 101)
+    even_msgs, even = _noisy_batch(rng, 2, 300)
+    jobs = [fic, odd, even]
+    outs = V.viterbi_decode_ragged([torch.from_numpy(j) for j in jobs])
+    refs = jv.viterbi_decode_ragged([jnp.asarray(j) for j in jobs],
+                                    impl="xla")
+    for (bits, metric), (rb, rm), m in zip(outs, refs,
+                                           (fic_msgs, odd_msgs, even_msgs)):
+        np.testing.assert_array_equal(bits.numpy(), np.asarray(rb))
+        np.testing.assert_allclose(metric.numpy(), np.asarray(rm),
+                                   rtol=1e-5)
+        np.testing.assert_array_equal(bits.numpy(), m)
+
+
+def test_onehot64_traceback_matches_default():
+    """``traceback="onehot64"`` gives the default traceback's bits, and
+    the bits of JAX's one-hot64 Pallas traceback in interpret mode."""
+    rng = np.random.default_rng(15)
+    _, s1 = _noisy_batch(rng, 2, 40)
+    _, s2 = _noisy_batch(rng, 2, 90)
+    soft, lengths = V.ragged_lanes([torch.from_numpy(s1),
+                                    torch.from_numpy(s2)])
+    bits, metric = V.viterbi_decode4(soft, lengths)
+    bits_oh, metric_oh = V.viterbi_decode4(soft, lengths,
+                                           traceback="onehot64")
+    np.testing.assert_array_equal(bits_oh.numpy(), bits.numpy())
+    np.testing.assert_array_equal(metric_oh.numpy(), metric.numpy())
+    pb, _ = viterbi_decode_pallas4(jnp.asarray(soft.numpy()),
+                                   interpret=True, lengths=lengths,
+                                   traceback="onehot64")
+    np.testing.assert_array_equal(bits_oh.numpy(), np.asarray(pb))
+    with pytest.raises(ValueError):
+        V.viterbi_decode4(soft, lengths, traceback="onehot16")
 
 
 def test_short_lane_padding_is_inert():
