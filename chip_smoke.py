@@ -14,7 +14,10 @@ of which raises on failure:
    (774 trellis steps) + 576 EEP 3-A 128 kbit/s codewords (3078 steps) in
    one lane batch: K1's decisions and metrics and K2's bits must equal the
    plain PyTorch versions exactly, and the decode must equal the encoded
-   messages; median times from CUDA events;
+   messages; then the same on an adversarial ragged batch (640 lanes of
+   1539 double steps, lengths at the kernels' chunk edges, a third of the
+   soft bits erased); median times from CUDA events, each pair of events
+   around 20 launches back to back, also per double step;
 3a. radix-2 at full width: 640 codewords of 3073 information bits (3079
    trellis steps, odd, so ``viterbi_decode`` takes K3/K4), BPSK in AWGN
    with a third of the soft bits erased to exactly 0 (ACS ties).  The
@@ -77,6 +80,7 @@ R2_LANES = 640
 R2_INFO_BITS = 3073             # trellis length 3079: odd, so radix-2
 R2_NOISE = 0.4                  # sigma per coded bit, Es/N0 4.95 dB
 R2_ERASED = 1 / 3               # share of soft bits set to exactly 0
+KERNEL_RUN = 20                 # kernel launches per pair of timing events
 
 # Bounds: NVIDIA H100 SXM data-sheet peaks.
 HBM_BYTES_PER_S = 3.35e12
@@ -142,9 +146,12 @@ def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
                                                           "operations")
 
 
-def _time_ms(fn, reps: int) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs (after one
-    warm-up run)."""
+def time_ms(fn, reps: int, run: int = 1) -> float:
+    """Median CUDA-event time of one call of ``fn`` over ``reps`` pairs of
+    events (after one warm-up call), each pair around ``run`` calls back
+    to back.  A kernel is timed with ``run`` > 1 so that the card is busy
+    from one event to the other: around a single launch the pair would
+    also count the host's enqueue of the launch."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -152,11 +159,57 @@ def _time_ms(fn, reps: int) -> float:
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(run):
+            fn()
         stop.record()
         stop.synchronize()
-        times.append(start.elapsed_time(stop))
+        times.append(start.elapsed_time(stop) / run)
     return statistics.median(times)
+
+
+def _us_per_step(ms: float, steps: int) -> str:
+    """A kernel's time per (double) step of its longest lane."""
+    return f"{ms * 1e3 / steps:.4f} us/step"
+
+
+def hold_k1k2(soft8, t2, ws4, what: str):
+    """K1's decisions and metrics and K2's bits against their plain
+    versions on the same inputs; raises unless they are equal.  Returns
+    (K1's decisions, K2's bits, the plain traceback's bits, K1's max
+    metric difference, K2's max bit difference)."""
+    dec_k, metric_k = K.acs4(soft8, t2, ws4)
+    dec_p, metric_p = V.acs4_plain(soft8, t2, ws4)
+    bits_k = K.traceback4(dec_k)
+    bits_p = V.traceback4_plain(dec_k)
+    torch.cuda.synchronize()
+    n_dec_diff = int((dec_k != dec_p).sum())
+    acs_err = float((metric_k - metric_p).abs().max())
+    tb_err = int((bits_k.int() - bits_p.int()).abs().max())
+    print(f"{what}: K1 acs4 vs plain: {n_dec_diff} decision words differ, "
+          f"max |metric diff| {acs_err}; K2 traceback4 vs plain: max |bit "
+          f"diff| {tb_err}")
+    if n_dec_diff or acs_err or tb_err:
+        raise AssertionError(f"kernel and plain version disagree: {what}")
+    return dec_k, bits_k, bits_p, acs_err, tb_err
+
+
+def adversarial_check(rng, ws4: torch.Tensor, t2_max: int) -> None:
+    """K1/K2 against their plain versions on 640 lanes of ``t2_max``
+    double steps whose lengths probe the kernels' chunk edges (0, 1, a
+    chunk and either side of it, 2 chunks + 3, the whole width, random),
+    with the radix-2 phase's noise and a third of the soft bits erased to
+    exactly 0 (ACS ties)."""
+    soft_np = (1.0 - 2.0 * rng.integers(0, 2, size=(R2_LANES, t2_max, 8))
+               + rng.normal(scale=R2_NOISE, size=(R2_LANES, t2_max, 8)))
+    soft_np[rng.random(soft_np.shape) < R2_ERASED] = 0.0
+    edges = np.array([0, 1, K.CHUNK - 1, K.CHUNK, K.CHUNK + 1,
+                      2 * K.CHUNK + 3, t2_max - 1, t2_max])
+    t2_np = rng.integers(0, t2_max + 1, size=R2_LANES)
+    t2_np[: 8 * len(edges)] = np.tile(edges, 8)
+    hold_k1k2(torch.from_numpy(soft_np.astype(np.float32)).cuda(),
+              torch.from_numpy(t2_np.astype(np.int32)).cuda(), ws4,
+              f"adversarial ragged batch, {R2_LANES} lanes x {t2_max} double "
+              f"steps, lengths {edges.tolist()} and random")
 
 
 def kernel_phase(rng) -> dict:
@@ -171,19 +224,8 @@ def kernel_phase(rng) -> dict:
     print(f"lanes: {b} x {n4 // 8} double steps "
           f"(64 x 774 FIC + 576 x 3078 MSC trellis steps)")
 
-    dec_k, metric_k = K.acs4(soft8, t2, ws4)
-    dec_p, metric_p = V.acs4_plain(soft8, t2, ws4)
-    bits_k = K.traceback4(dec_k)
-    bits_p = V.traceback4_plain(dec_k)
-    torch.cuda.synchronize()
-    n_dec_diff = int((dec_k != dec_p).sum())
-    acs_err = float((metric_k - metric_p).abs().max())
-    tb_err = int((bits_k.int() - bits_p.int()).abs().max())
-    print(f"K1 acs4 vs plain: {n_dec_diff} decision words differ, "
-          f"max |metric diff| {acs_err}")
-    print(f"K2 traceback4 vs plain: max |bit diff| {tb_err}")
-    if n_dec_diff or acs_err or tb_err:
-        raise AssertionError("kernel and plain version disagree")
+    dec_k, bits_k, bits_p, acs_err, tb_err = hold_k1k2(
+        soft8, t2, ws4, "flagship ragged shape")
 
     decoded = V.viterbi_decode_ragged(jobs)          # the dispatch itself
     for (bits, _), m, name in zip(decoded, msgs, ("FIC", "MSC")):
@@ -192,12 +234,15 @@ def kernel_phase(rng) -> dict:
         if wrong:
             raise AssertionError(f"{name} decode differs from the messages")
 
-    acs_ms = _time_ms(lambda: K.acs4(soft8, t2, ws4), 20)
-    acs_plain_ms = _time_ms(lambda: V.acs4_plain(soft8, t2, ws4), 3)
-    tb_ms = _time_ms(lambda: K.traceback4(dec_k), 20)
-    tb_plain_ms = _time_ms(lambda: V.traceback4_plain(dec_k), 3)
-    print(f"K1 acs4: {acs_ms:.4f} ms (plain {acs_plain_ms:.2f} ms); "
-          f"K2 traceback4: {tb_ms:.4f} ms (plain {tb_plain_ms:.2f} ms)")
+    adversarial_check(rng, ws4, n4 // 8)
+
+    acs_ms = time_ms(lambda: K.acs4(soft8, t2, ws4), 10, KERNEL_RUN)
+    acs_plain_ms = time_ms(lambda: V.acs4_plain(soft8, t2, ws4), 3)
+    tb_ms = time_ms(lambda: K.traceback4(dec_k), 10, KERNEL_RUN)
+    tb_plain_ms = time_ms(lambda: V.traceback4_plain(dec_k), 3)
+    print(f"K1 acs4: {acs_ms:.4f} ms, {_us_per_step(acs_ms, n4 // 8)} "
+          f"(plain {acs_plain_ms:.2f} ms); K2 traceback4: {tb_ms:.4f} ms, "
+          f"{_us_per_step(tb_ms, n4 // 8)} (plain {tb_plain_ms:.2f} ms)")
     live = int(lengths.sum()) // 2                   # live lane-double-steps
     n_dec = dec_k.numel() * 4
     tb_bytes = live * 8 + bits_k.numel()             # 2 words read per step
@@ -255,12 +300,13 @@ def radix2_phase(rng) -> dict:
     if n_dec_diff or acs_err or tb_err:
         raise AssertionError("radix-2 kernel and plain version disagree")
 
-    acs_ms = _time_ms(lambda: K.acs2(soft4, ws2), 20)
-    acs_plain_ms = _time_ms(lambda: V.acs2_plain(soft4, ws2), 3)
-    tb_ms = _time_ms(lambda: K.traceback2(dec_k), 20)
-    tb_plain_ms = _time_ms(lambda: V.traceback2_plain(dec_k), 3)
-    print(f"K3 acs2: {acs_ms:.4f} ms (plain {acs_plain_ms:.2f} ms); "
-          f"K4 traceback2: {tb_ms:.4f} ms (plain {tb_plain_ms:.2f} ms)")
+    acs_ms = time_ms(lambda: K.acs2(soft4, ws2), 10, KERNEL_RUN)
+    acs_plain_ms = time_ms(lambda: V.acs2_plain(soft4, ws2), 3)
+    tb_ms = time_ms(lambda: K.traceback2(dec_k), 10, KERNEL_RUN)
+    tb_plain_ms = time_ms(lambda: V.traceback2_plain(dec_k), 3)
+    print(f"K3 acs2: {acs_ms:.4f} ms, {_us_per_step(acs_ms, n4 // 4)} "
+          f"(plain {acs_plain_ms:.2f} ms); K4 traceback2: {tb_ms:.4f} ms, "
+          f"{_us_per_step(tb_ms, n4 // 4)} (plain {tb_plain_ms:.2f} ms)")
     steps = b * (n4 // 4)
     return {"launches": launches, "records": {
         "acs2": {"max_abs_err": acs_err, "ms": acs_ms,
@@ -302,9 +348,10 @@ def onehot_phase(kern: dict) -> dict:
           f"{err_p} vs traceback4_plain")
     if err_k2 or err_p:
         raise AssertionError("K2' disagrees with K2 or the plain version")
-    ms = _time_ms(lambda: K.traceback4_onehot64(dec), 20)
+    ms = time_ms(lambda: K.traceback4_onehot64(dec), 10, KERNEL_RUN)
     k2 = kern["records"]["traceback4"]
-    print(f"K2' traceback4_onehot64: {ms:.4f} ms (K2 {k2['ms']:.4f} ms)")
+    print(f"K2' traceback4_onehot64: {ms:.4f} ms, "
+          f"{_us_per_step(ms, dec.shape[1])} (K2 {k2['ms']:.4f} ms)")
     # K2' computes K2's function: the same plain version, time and bound.
     return {"launches": launches, "records": {"traceback4_onehot64": {
         "max_abs_err": float(max(err_k2, err_p)), "ms": ms,

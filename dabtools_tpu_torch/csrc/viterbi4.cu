@@ -1,40 +1,81 @@
 // Radix-4 soft-decision Viterbi for the DAB K=7 rate-1/4 code on Hopper.
 //
-// K1 acs4_kernel replaces dabtools_tpu/ops/viterbi_pallas4.py::_acs4_kernel
-// (launched at _decode4_call, viterbi_pallas4.py:351); K2
-// traceback4_kernel replaces ::_traceback4_kernel (launched at :389); K2'
-// traceback4_onehot64_kernel replaces ::_traceback4_kernel_onehot64 (the
-// same launch with traceback="onehot64").  Only the TPU kernel's default
-// ACS semantics are built (select=shuffle, pack=shift4, bm=f32); the
-// plain PyTorch versions that compute the same values are
+// K1 acs4_kernel replaces dabtools_tpu/ops/viterbi_pallas4.py:29
+// _acs4_kernel (launched at _decode4_call, viterbi_pallas4.py:351); K2
+// traceback4_kernel replaces :177 _traceback4_kernel (launched at :389);
+// K2' traceback4_onehot64_kernel replaces :246 _traceback4_kernel_onehot64
+// (the same launch with traceback="onehot64").  Only the TPU kernel's
+// default ACS semantics are built (select=shuffle, pack=shift4, bm=f32);
+// the plain PyTorch versions that compute the same values are
 // dabtools_tpu_torch/ops/viterbi.py::acs4_plain and ::traceback4_plain
 // (for K2 and K2' alike: the two compute one function).
 //
 // What bounds them on the card.  Both are sequential recursions over the
 // double steps of a codeword (1539 at the flagship's 3078-step MSC
-// codewords), so latency, not bandwidth or arithmetic, sets their time: at
-// the flagship shape K1 moves 31.5 MB of soft bits in and 15.8 MB of
-// decisions out, and does ~50 flops per state per step.  Each step of K1
-// is one dependent chain: load 8 soft bits, form 4 branch metrics, 4 adds,
-// a 4-way select, one barrier.  K2 is one dependent load per step.
+// codewords), so latency and instruction issue, not bandwidth or
+// arithmetic, set their time: at the flagship shape K1 moves 29 MB of
+// live soft bits in and 16 MB of decisions out, which HBM moves in
+// ~0.013 ms.  What counts is each step's dependent chain and the
+// instructions each step issues.  One codeword alone is bound by its
+// warp's issue of a step's ~60 instructions, many of them dependent
+// (tools/torch_viterbi4_probe.py times 1 lane against many).  At the
+// flagship's 640 lanes K1 is bound by issue: its 576 MSC codewords are
+// more than the card's 528 warp schedulers (132 SMs x 4), so some
+// scheduler holds two of them and issues both their steps.  So the
+// design keeps loads, shared memory and barriers off the per-step chain
+// and cuts the instructions per step.
 //
-// What the design does about it.  K1 runs one 64-thread block per lane
-// (codeword), one thread per target state, so all 640 lanes of a flagship
-// block are resident at once (132 SMs) and the card runs every lane's
-// chain side by side.  Path metrics live double-buffered in shared memory
-// (one barrier per step), the 32 +/-1 branch-metric signs of a thread sit
-// in registers, and the next step's soft bits are loaded before the
-// current step's select so the load latency overlaps the arithmetic.
-// Decisions leave as two __ballot_sync words per warp per step.  K2 runs
-// one thread per lane walking an integer state: the TPU kernel's factored
-// one-hot carry existed only to avoid scalar work on the TPU's vector
-// unit.  K2' keeps the one-hot64 kernel's idea: the survivor state is a
-// 64-wide one-hot spread over one warp per lane, two states per thread
-// (j and 32 + j); warp votes read the active state's input bits and
-// 2-bit decision where the TPU kernel multiplied and reduced over
-// sublanes, and two shuffles move the one-hot to the predecessor.  It does
-// more work per step than K2 and is expected to be slower.  Faster
-// layouts (warp-shuffle ACS, coalesced decision tiles) are later work.
+// K1 design: one warp per codeword, path metrics in registers.  Thread j
+// holds states j (pm0) and 32 + j (pm1).  Both its targets, t = j and t =
+// 32 + j, have the predecessors 4a..4a+3 with a = j & 15, and state 4a + p
+// lives in thread 4(a & 7) + p, in pm1 if a >= 8 else pm0.  A step is 8
+// __shfl_sync (both registers of the 4 source threads: the readers of one
+// source want different registers), 4 selects, 8 candidate adds and two
+// 4-way selects, with no shared memory and no barrier on the chain; the
+// survivor's metric is an fmaxf tree, and the compares that give the
+// decisions are off the chain.  4 __ballot_sync give the step's 4
+// decision words, which thread 0 puts in shared memory; they leave as one
+// coalesced 512 B store per chunk.  Branch metrics take 3 signed 4-term
+// sums per thread instead of 8 8-term ones, since all four DAB generator
+// polynomials tap both the newest and the oldest register bit.  So for
+// target t and predecessor p (rows of WS4), flipping p's bit 0 negates
+// the first step's 4 signs, flipping p's bit 1 negates the second step's,
+// the second step's signs do not depend on p's bit 0, and t = 32 + j has
+// t = j's first-step signs and negated second-step ones
+// (tests/test_torch_viterbi.py::test_warp_branch_metric_signs pins this
+// on WS4).  With A and B the first step's sums of p = 0 and p = 2 and C
+// the second step's of p = 0, target j takes A+C, -A+C, B-C, -B-C and
+// target 32 + j takes A-C, -A-C, B+C, -B+C: the same values, bit for bit,
+// as summing each row's own signs, since negation is exact and rounding
+// to nearest is symmetric.  The kernel reads those three sign rows of WS4
+// and no other.  A trellis step has only 16 sign patterns, so thread j
+// forms pattern j & 15 of trellis step j >> 4 (the first or the second)
+// for each double step of a chunk before the chunk's walk, and a step
+// takes its A, B and C from the threads of their patterns with 3 more
+// shuffles that do not depend on the path metrics.  Soft bits come in
+// chunks of kChunk = 32 double steps (1 KB a lane), one step's two float4
+// per thread, coalesced; chunk k + 1 is loaded into registers while chunk
+// k is walked from shared memory.  A lane's recurrence stops at
+// t2[lane]; the steps after it store decision 0.  Two lanes (warps) per
+// 64-thread block: the flagship's 640 lanes are 320 blocks, all resident
+// at once over the 132 SMs (94 registers a thread, 3 KB of shared memory
+// a block).
+//
+// K2 design: one warp per codeword as well, walking a warp-uniform state.
+// Chunks of kChunk double steps of decision words are loaded coalesced
+// (one uint4 per thread, 512 B), the next chunk down while the current
+// one is walked from shared memory (one broadcast 16 B load per step,
+// whose address does not depend on the state, issued a step ahead), so
+// the chain per step is a few integer operations.  Thread i keeps the two
+// bits of the chunk's step i, and the chunk's bits leave as one coalesced
+// store (2 B per thread).  T2 need not be a multiple of kChunk.  Two lanes
+// per block, as K1 (31 registers, 1 KB of shared memory a block).
+//
+// K2' keeps the one-hot64 kernel's idea: the survivor state is a 64-wide
+// one-hot spread over one warp per lane, two states per thread (j and
+// 32 + j); warp votes read the active state's input bits and 2-bit
+// decision where the TPU kernel multiplied and reduced over sublanes, and
+// two shuffles move the one-hot to the predecessor.
 //
 // Semantics that must match the plain version bit for bit:
 //   * branch metric bm[p*64+t] = (sum_{k<4} w_k s_k) + (sum_{k>=4} w_k s_k)
@@ -54,98 +95,194 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
+constexpr unsigned kAll = 0xffffffffu;
+constexpr int kChunk = 32;         // double steps per staged chunk
+constexpr int kLanesPerBlock = 2;  // K1/K2: one warp per lane
 
-__global__ void __launch_bounds__(64)
-acs4_kernel(const float* __restrict__ soft, const int* __restrict__ t2,
-            const float* __restrict__ ws4, uint32_t* __restrict__ dec,
-            float* __restrict__ metric, int T2) {
-  const int lane = blockIdx.x;
-  const int t = threadIdx.x;  // target state
-  __shared__ float pm[2][64];
-
-  float w[4][8];
-#pragma unroll
-  for (int p = 0; p < 4; ++p)
-#pragma unroll
-    for (int k = 0; k < 8; ++k) w[p][k] = ws4[(p * 64 + t) * 8 + k];
-  const int pred0 = 4 * (t & 15);
-  const int word = 2 * (t >> 5);
-  const int len = t2[lane];
-  const float4* s4 =
-      reinterpret_cast<const float4*>(soft + (size_t)lane * T2 * 8);
-  uint32_t* dl = dec + (size_t)lane * T2 * 4;
-
-  pm[0][t] = (t == 0) ? 0.0f : kNegInf;
-  __syncthreads();
-
-  float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
-  if (T2 > 0) {
-    a = s4[0];
-    b = s4[1];
-  }
-  int cur = 0;
-  for (int g = 0; g < T2; ++g) {
-    float4 na = a, nb = b;
-    if (g + 1 < T2) {
-      na = s4[2 * g + 2];
-      nb = s4[2 * g + 3];
-    }
-    const float s[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-    float c[4];
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      float step1 = w[p][0] * s[0];
-      float step2 = w[p][4] * s[4];
-#pragma unroll
-      for (int k = 1; k < 4; ++k) {
-        step1 += w[p][k] * s[k];
-        step2 += w[p][4 + k] * s[4 + k];
-      }
-      c[p] = pm[cur][pred0 + p] + (step1 + step2);
-    }
-    const bool d01 = c[1] > c[0];
-    const float m01 = d01 ? c[1] : c[0];
-    const bool d23 = c[3] > c[2];
-    const float m23 = d23 ? c[3] : c[2];
-    const bool hi = m23 > m01;
-    float nw = hi ? m23 : m01;
-    int d = hi ? 2 + (int)d23 : (int)d01;
-    if (g >= len) {  // dead step: freeze, record 0
-      nw = pm[cur][t];
-      d = 0;
-    }
-    pm[cur ^ 1][t] = nw;
-    const uint32_t b0 = __ballot_sync(0xffffffffu, d & 1);
-    const uint32_t b1 = __ballot_sync(0xffffffffu, d >> 1);
-    if ((t & 31) == 0) {
-      dl[4 * g + word] = b0;
-      dl[4 * g + word + 1] = b1;
-    }
-    __syncthreads();
-    cur ^= 1;
-    a = na;
-    b = nb;
-  }
-  if (t == 0) metric[lane] = pm[cur][0];
+// The 4-way select of one target: returns the survivor's metric and sets
+// the decision's two bits.  fmaxf gives the strict-'>' select's value,
+// since no candidate is NaN or -0 (a sum is -0 only if both terms are,
+// and no path metric is), and keeps the compares off the path-metric
+// chain.
+__device__ __forceinline__ float select4(const float (&pred)[4],
+                                         const float (&bm)[4], bool& bit0,
+                                         bool& bit1) {
+  const float c0 = pred[0] + bm[0], c1 = pred[1] + bm[1];
+  const float c2 = pred[2] + bm[2], c3 = pred[3] + bm[3];
+  const float m01 = fmaxf(c0, c1), m23 = fmaxf(c2, c3);
+  const bool hi = m23 > m01;
+  bit0 = hi ? c3 > c2 : c1 > c0;
+  bit1 = hi;
+  return fmaxf(m01, m23);
 }
 
-__global__ void traceback4_kernel(const uint32_t* __restrict__ dec,
-                                  uint8_t* __restrict__ bits, int B,
-                                  int T2) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  const uint4* dl = reinterpret_cast<const uint4*>(dec + (size_t)lane * T2 * 4);
-  uint8_t* bl = bits + (size_t)lane * 2 * T2;
+// Signed sum of one trellis step's 4 soft bits, left to right.
+__device__ __forceinline__ float signed_sum(const float (&w)[4], float4 s) {
+  return fmaf(w[3], s.w, fmaf(w[2], s.z, fmaf(w[1], s.y, w[0] * s.x)));
+}
+
+// Sign pattern 8 n0 + 4 n1 + 2 n2 + n3 of 4 +/-1 signs (n_k: w_k < 0).
+__device__ __forceinline__ int sign_pattern(const float (&w)[4]) {
+  return 8 * (w[0] < 0.f) + 4 * (w[1] < 0.f) + 2 * (w[2] < 0.f) +
+         (w[3] < 0.f);
+}
+
+// Walk the first n (all kChunk if kFull) double steps of a staged chunk.
+// Thread j first forms, for every step of the chunk, the signed sum of
+// pattern j & 15 over trellis step j >> 4's 4 soft bits; a step then
+// reads its A, B and C from threads la, lb and lc.
+template <bool kFull>
+__device__ __forceinline__ void acs4_walk(
+    const float4 (*soft)[2], uint4* dec, int n, const float (&wq)[4], int j,
+    int la, int lb, int lc, int src, bool upper, float& pm0, float& pm1) {
+  // The chunk's signed sums first: they do not depend on the path metrics,
+  // and formed inside a step their loads and 4-deep sums would sit on the
+  // chain (the compiler issues a step's loads just before their use).
+  float sq[kChunk];
+#pragma unroll
+  for (int i = 0; i < kChunk; ++i) {
+    if (!kFull && i >= n) break;
+    sq[i] = signed_sum(wq, soft[i][j >> 4]);
+  }
+#pragma unroll
+  for (int i = 0; i < kChunk; ++i) {
+    if (!kFull && i >= n) break;
+    const float a = __shfl_sync(kAll, sq[i], la);
+    const float b = __shfl_sync(kAll, sq[i], lb);
+    const float c = __shfl_sync(kAll, sq[i], lc);
+    const float bm0[4] = {a + c, -a + c, b + -c, -b + -c};
+    const float bm1[4] = {a + -c, -a + -c, b + c, -b + c};
+    float pred[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const float q0 = __shfl_sync(kAll, pm0, src + p);
+      const float q1 = __shfl_sync(kAll, pm1, src + p);
+      pred[p] = upper ? q1 : q0;
+    }
+    bool lo0, lo1, hi0, hi1;
+    pm0 = select4(pred, bm0, lo0, lo1);
+    pm1 = select4(pred, bm1, hi0, hi1);
+    const uint32_t w0 = __ballot_sync(kAll, lo0);
+    const uint32_t w1 = __ballot_sync(kAll, lo1);
+    const uint32_t w2 = __ballot_sync(kAll, hi0);
+    const uint32_t w3 = __ballot_sync(kAll, hi1);
+    if (j == 0) dec[i] = make_uint4(w0, w1, w2, w3);
+  }
+}
+
+__global__ void __launch_bounds__(32 * kLanesPerBlock)
+acs4_kernel(const float* __restrict__ soft, const int* __restrict__ t2,
+            const float* __restrict__ ws4, uint32_t* __restrict__ dec,
+            float* __restrict__ metric, int B, int T2) {
+  __shared__ float4 soft_s[kLanesPerBlock][kChunk][2];
+  __shared__ uint4 dec_s[kLanesPerBlock][kChunk];
+  const int warp = threadIdx.x >> 5;
+  const int j = threadIdx.x & 31;
+  const int lane = blockIdx.x * kLanesPerBlock + warp;
+  if (lane >= B) return;  // warp-uniform: every lane is one whole warp
+
+  // Sign rows (p = 0, t = j) and (p = 2, t = j) of the first step, (p = 0,
+  // t = j) of the second; every other row follows from these (see above).
+  // Their sums come from the threads whose own pattern they are.
+  float wa[4], wb[4], wc[4], wq[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    wa[k] = ws4[j * 8 + k];
+    wb[k] = ws4[(128 + j) * 8 + k];
+    wc[k] = ws4[j * 8 + 4 + k];
+    wq[k] = ((j >> (3 - k)) & 1) ? -1.0f : 1.0f;
+  }
+  const int la = sign_pattern(wa), lb = sign_pattern(wb);
+  const int lc = 16 + sign_pattern(wc);
+  const int a = j & 15;
+  const int src = 4 * (a & 7);
+  const bool upper = a >= 8;
+  const int len = min(max(t2[lane], 0), T2);
+  const float4* s4 =
+      reinterpret_cast<const float4*>(soft + (size_t)lane * T2 * 8);
+  uint4* dl = reinterpret_cast<uint4*>(dec + (size_t)lane * T2 * 4);
+
+  float pm0 = (j == 0) ? 0.0f : kNegInf, pm1 = kNegInf;
+  float4 n1 = make_float4(0.f, 0.f, 0.f, 0.f), n2 = n1;
+  if (j < len) {
+    n1 = s4[2 * j];
+    n2 = s4[2 * j + 1];
+  }
+  for (int base = 0; base < T2; base += kChunk) {
+    const int n = min(kChunk, max(len - base, 0));  // live steps here
+    if (n > 0) {
+      __syncwarp();
+      soft_s[warp][j][0] = n1;
+      soft_s[warp][j][1] = n2;
+      __syncwarp();
+      const int g = base + kChunk + j;  // the next chunk, in flight
+      if (g < len) {
+        n1 = s4[2 * g];
+        n2 = s4[2 * g + 1];
+      }
+      if (n == kChunk)
+        acs4_walk<true>(soft_s[warp], dec_s[warp], n, wq, j, la, lb, lc, src,
+                        upper, pm0, pm1);
+      else
+        acs4_walk<false>(soft_s[warp], dec_s[warp], n, wq, j, la, lb, lc, src,
+                         upper, pm0, pm1);
+      __syncwarp();
+    }
+    if (base + j < T2)  // steps past the lane's length record 0
+      dl[base + j] = (j < n) ? dec_s[warp][j] : make_uint4(0u, 0u, 0u, 0u);
+  }
+  if (j == 0) metric[lane] = pm0;
+}
+
+// Walk the staged chunk's steps n-1 .. 0 (kChunk-1 .. 0 if kFull) from
+// state s; thread j keeps step j's two bits in own (byte 0: bit 2g, byte
+// 1: bit 2g + 1).
+template <bool kFull>
+__device__ __forceinline__ void traceback4_walk(const uint4* words, int n,
+                                                int j, int& s,
+                                                uint32_t& own) {
+  uint4 next = words[kFull ? kChunk - 1 : n - 1];
+#pragma unroll
+  for (int i = kChunk - 1; i >= 0; --i) {
+    if (!kFull && i >= n) continue;
+    const uint4 w = next;
+    if (i > 0) next = words[i - 1];  // broadcast load, a step ahead
+    if (j == i) own = ((s >> 4) & 1) | (((s >> 5) & 1) << 8);
+    const uint32_t lo = (s & 32) ? w.z : w.x;
+    const uint32_t hi = (s & 32) ? w.w : w.y;
+    const int b = s & 31;
+    s = (4 * (s & 15)) | (int)((lo >> b) & 1u) | (int)(((hi >> b) & 1u) << 1);
+  }
+}
+
+__global__ void __launch_bounds__(32 * kLanesPerBlock)
+traceback4_kernel(const uint32_t* __restrict__ dec,
+                  uint8_t* __restrict__ bits, int B, int T2) {
+  __shared__ uint4 dec_s[kLanesPerBlock][kChunk];
+  const int warp = threadIdx.x >> 5;
+  const int j = threadIdx.x & 31;
+  const int lane = blockIdx.x * kLanesPerBlock + warp;
+  if (lane >= B || T2 <= 0) return;  // warp-uniform
+  const uint4* dl =
+      reinterpret_cast<const uint4*>(dec + (size_t)lane * T2 * 4);
+  uint16_t* bl = reinterpret_cast<uint16_t*>(bits + (size_t)lane * 2 * T2);
+
+  const int top = ((T2 - 1) / kChunk) * kChunk;  // the highest chunk
+  uint4 next = make_uint4(0u, 0u, 0u, 0u);
+  if (top + j < T2) next = dl[top + j];
   int s = 0;
-  for (int g = T2 - 1; g >= 0; --g) {
-    const uint4 w = dl[g];
-    bl[2 * g] = (uint8_t)((s >> 4) & 1);
-    bl[2 * g + 1] = (uint8_t)((s >> 5) & 1);
-    const uint32_t lo = (s >> 5) ? w.z : w.x;
-    const uint32_t hi = (s >> 5) ? w.w : w.y;
-    const int j = s & 31;
-    const int d = (int)((lo >> j) & 1u) | ((int)((hi >> j) & 1u) << 1);
-    s = 4 * (s & 15) + d;
+  for (int base = top; base >= 0; base -= kChunk) {
+    __syncwarp();
+    dec_s[warp][j] = next;
+    __syncwarp();
+    if (base > 0) next = dl[base - kChunk + j];  // the chunk below, in flight
+    const int n = min(kChunk, T2 - base);
+    uint32_t own = 0;
+    if (n == kChunk)
+      traceback4_walk<true>(dec_s[warp], n, j, s, own);
+    else
+      traceback4_walk<false>(dec_s[warp], n, j, s, own);
+    if (j < n) bl[base + j] = (uint16_t)own;
   }
 }
 
@@ -199,17 +336,18 @@ extern "C" int dab_acs4(const float* soft, const int* t2, const float* ws4,
                         uint32_t* dec, float* metric, int B, int T2,
                         void* stream) {
   if (B > 0)
-    acs4_kernel<<<B, 64, 0, (cudaStream_t)stream>>>(soft, t2, ws4, dec,
-                                                    metric, T2);
+    acs4_kernel<<<(B + kLanesPerBlock - 1) / kLanesPerBlock,
+                  32 * kLanesPerBlock, 0, (cudaStream_t)stream>>>(
+        soft, t2, ws4, dec, metric, B, T2);
   return (int)cudaGetLastError();
 }
 
 extern "C" int dab_traceback4(const uint32_t* dec, uint8_t* bits, int B,
                               int T2, void* stream) {
-  const int threads = 128;
   if (B > 0)
-    traceback4_kernel<<<(B + threads - 1) / threads, threads, 0,
-                        (cudaStream_t)stream>>>(dec, bits, B, T2);
+    traceback4_kernel<<<(B + kLanesPerBlock - 1) / kLanesPerBlock,
+                        32 * kLanesPerBlock, 0, (cudaStream_t)stream>>>(
+        dec, bits, B, T2);
   return (int)cudaGetLastError();
 }
 

@@ -43,6 +43,9 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+CHUNK = 32              # K1/K2's double steps per staged chunk: kChunk
+                        # of csrc/viterbi4.cu, for the tests' chunk edges
+
 acs4_launches = 0
 traceback4_launches = 0
 traceback4_onehot64_launches = 0
@@ -112,6 +115,13 @@ def build() -> ctypes.CDLL:
         for o in objs:
             o.unlink()
         os.replace(tmp, so)
+    _lib = load(so)
+    return _lib
+
+
+def load(so: pathlib.Path) -> ctypes.CDLL:
+    """Load a library built from the kernel sources and declare its C
+    interface."""
     lib = ctypes.CDLL(str(so))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for name, args in (("dab_acs4", [vp, vp, vp, vp, vp, ci, ci, vp]),
@@ -122,7 +132,6 @@ def build() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.restype = ci
         fn.argtypes = args
-    _lib = lib
     return lib
 
 

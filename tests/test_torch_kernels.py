@@ -20,6 +20,7 @@ import torch
 
 from dabtools_tpu_torch.mod.convcode import conv_encode
 from dabtools_tpu_torch.ops import viterbi as V
+from dabtools_tpu_torch.ops.viterbi_cuda import CHUNK
 
 torch.set_num_threads(2)
 
@@ -41,18 +42,34 @@ def _noisy_batch(rng, batch, n, scale=0.6):
     return msgs, soft
 
 
+def _info_bits(t2):
+    """Information bits of a codeword of ``t2`` double steps."""
+    return 2 * t2 - 6
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(3, 768), (5, 3072), (1, 2)])
-def test_kernels_match_plain(cuda, shape):
+@pytest.mark.parametrize("shape,erased", [
+    ((3, 768), 0.0), ((5, 3072), 0.0), ((1, 2), 0.0),
+    ((5, _info_bits(CHUNK - 1)), 1 / 3), ((7, _info_bits(CHUNK + 1)), 1 / 3),
+    ((9, _info_bits(2 * CHUNK + 3)), 1 / 3)])
+def test_kernels_match_plain(cuda, shape, erased):
+    """K1/K2 against the plain versions, exactly.  The last three cases
+    test the kernels' chunking: T2 off a multiple of the chunk, an odd
+    lane count (the last two-lane block half empty), lanes of 0, 1 and
+    one chunk of double steps, and a third of the soft bits erased to
+    exactly 0 (ACS ties)."""
     from dabtools_tpu_torch.ops import viterbi_cuda as K
     batch, n = shape
     rng = np.random.default_rng(batch + n)
-    msgs, soft = _noisy_batch(rng, batch, n)
+    msgs, soft = _noisy_batch(rng, batch, n, scale=0.4 if erased else 0.6)
+    soft[rng.random(soft.shape) < erased] = 0.0
     s = torch.from_numpy(soft).to(cuda)
     b, n4 = s.shape
     soft8 = s.reshape(b, n4 // 8, 8)
     t2 = torch.full((b,), n4 // 8, dtype=torch.int32, device=cuda)
     t2[0] = n4 // 16                                # one short lane
+    if b >= 5:
+        t2[1:4] = torch.tensor([0, 1, min(CHUNK, n4 // 8)])
     ws4 = V._ws4(cuda)
     dec_k, metric_k = K.acs4(soft8, t2, ws4)
     dec_p, metric_p = V.acs4_plain(soft8, t2, ws4)

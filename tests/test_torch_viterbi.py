@@ -31,6 +31,7 @@ from dabtools_tpu.tables.puncturing import (
 )
 from dabtools_tpu_torch.ops import fec
 from dabtools_tpu_torch.ops import viterbi as V
+from dabtools_tpu_torch.ops.viterbi_cuda import CHUNK
 from dabtools_tpu_torch.ops.uep_probe import candidate_metrics
 
 torch.set_num_threads(2)
@@ -262,6 +263,183 @@ def test_short_lane_padding_is_inert():
     np.testing.assert_array_equal(bits[0, :100].numpy(), alone[0].numpy())
     assert metric[0] == alone_metric[0]
     np.testing.assert_array_equal(bits[1, :300].numpy(), m2[0])
+
+
+# K1/K2's warp schedule (csrc/viterbi4.cu), emulated with torch on the CPU:
+# axis 1 of a (lanes, 32) tensor is the warp's 32 threads, a shuffle is a
+# gather along it and a ballot packs it into a word.
+_THREADS = torch.arange(32)
+
+
+def _pattern(w):
+    """(32, 4) +/-1 signs -> (32,) sign pattern 8 n0 + 4 n1 + 2 n2 + n3."""
+    neg = (w < 0).to(torch.int64)
+    return 8 * neg[:, 0] + 4 * neg[:, 1] + 2 * neg[:, 2] + neg[:, 3]
+
+
+def _warp_signs(ws4):
+    """Thread j's own signs (pattern j & 15) and the threads whose
+    patterns are its sign rows A, B, C: the first step of (p=0, t=j) and
+    (p=2, t=j), the second step of (p=0, t=j)."""
+    j = _THREADS
+    wq = 1.0 - 2.0 * ((j[:, None] >> torch.arange(3, -1, -1)) & 1).float()
+    return (wq, _pattern(ws4[j, :4]), _pattern(ws4[128 + j, :4]),
+            16 + _pattern(ws4[j, 4:]))
+
+
+def _warp_branch_metrics(s, wq, la, lb, lc):
+    """(lanes, 8) soft bits of one double step -> bm of target j and of
+    target 32 + j, each (4 predecessors, lanes, 32), as the kernel forms
+    them: thread j sums its pattern over trellis step j >> 4's 4 soft
+    bits, left to right; A, B, C are gathered from threads la, lb, lc."""
+    half = torch.where((_THREADS >> 4)[None, :, None] == 0,
+                       s[:, None, :4], s[:, None, 4:])     # (lanes, 32, 4)
+    sq = wq[None, :, 0] * half[..., 0]
+    for k in range(1, 4):
+        sq = sq + wq[None, :, k] * half[..., k]
+    a, b, c = sq[:, la], sq[:, lb], sq[:, lc]
+    return (torch.stack([a + c, -a + c, b + -c, -b + -c]),
+            torch.stack([a + -c, -a + -c, b + c, -b + c]))
+
+
+def _ballot(bits):
+    """(lanes, 32) bool -> (lanes,) int64 word, thread j at bit j."""
+    return (bits.to(torch.int64) << _THREADS).sum(-1)
+
+
+def _select4(pred, bm):
+    c0, c1, c2, c3 = (pred + bm).unbind(0)
+    d01, d23 = c1 > c0, c3 > c2
+    m01, m23 = torch.where(d01, c1, c0), torch.where(d23, c3, c2)
+    hi = m23 > m01
+    return torch.where(hi, m23, m01), torch.where(hi, d23, d01), hi
+
+
+def _warp_acs4(soft8, t2, ws4):
+    """K1's schedule: soft bits staged a chunk at a time (thread i holds
+    step base + i), path metrics of states j / 32 + j in pm0 / pm1,
+    predecessor 4a + p read from thread 4(a & 7) + p, register a >> 3."""
+    b, t2_max, _ = soft8.shape
+    signs = _warp_signs(ws4)
+    a = _THREADS & 15
+    src, upper = 4 * (a & 7), a >= 8
+    length = t2.to(torch.int64).clamp(0, t2_max)
+    pm0 = torch.full((b, 32), V.NEG_INF, dtype=torch.float32)
+    pm0[:, 0] = 0.0
+    pm1 = torch.full((b, 32), V.NEG_INF, dtype=torch.float32)
+    dec = torch.full((b, t2_max, 4), -7, dtype=torch.int64)
+    # Shared memory keeps what the last chunk left: start it as garbage.
+    staged = torch.full((b, CHUNK, 8), float("nan"))
+    dec_s = torch.full((b, CHUNK, 4), 0x5A5A5A5A, dtype=torch.int64)
+    for base in range(0, t2_max, CHUNK):
+        g = base + _THREADS
+        staged = torch.where(g[None, :, None] < length[:, None, None],
+                             soft8[:, g.clamp(max=t2_max - 1)], staged)
+        n = (length - base).clamp(0, CHUNK)          # live steps, per lane
+        for i in range(CHUNK):
+            live = i < n
+            bm0, bm1 = _warp_branch_metrics(staged[:, i], *signs)
+            pred = torch.stack([torch.where(upper, pm1[:, src + p],
+                                            pm0[:, src + p])
+                                for p in range(4)])
+            new0, lo0, lo1 = _select4(pred, bm0)
+            new1, hi0, hi1 = _select4(pred, bm1)
+            pm0 = torch.where(live[:, None], new0, pm0)
+            pm1 = torch.where(live[:, None], new1, pm1)
+            words = torch.stack([_ballot(x) for x in (lo0, lo1, hi0, hi1)],
+                                dim=-1)
+            dec_s[:, i] = torch.where(live[:, None], words, dec_s[:, i])
+        # thread i stores step base + i: its staged word if live, else 0
+        keep = g < t2_max
+        out = torch.where(_THREADS[None, :, None] < n[:, None, None], dec_s,
+                          0)
+        dec[:, g[keep]] = out[:, keep]
+    wrapped = torch.where(dec >= 2 ** 31, dec - 2 ** 32, dec)
+    return wrapped.to(torch.int32), pm0[:, 0].clone()
+
+
+def _warp_traceback4(dec):
+    """K2's schedule: chunks walked from the top, thread i holds step base
+    + i's words and keeps its two bits; one store per chunk."""
+    b, t2_max, _ = dec.shape
+    words = dec.to(torch.int64) & 0xFFFFFFFF
+    out = torch.full((b, t2_max), -1, dtype=torch.int64)
+    s = torch.zeros(b, dtype=torch.int64)
+    top = (t2_max - 1) // CHUNK * CHUNK
+    for base in range(top, -1, -CHUNK):
+        g = base + _THREADS
+        staged = words[:, g.clamp(max=t2_max - 1)] * (g < t2_max)[None, :,
+                                                                   None]
+        n = min(CHUNK, t2_max - base)
+        own = torch.zeros((b, 32), dtype=torch.int64)
+        for i in range(n - 1, -1, -1):
+            w = staged[:, i]
+            own[:, i] = ((s >> 4) & 1) | (((s >> 5) & 1) << 8)
+            up = (s & 32) != 0
+            lo = torch.where(up, w[:, 2], w[:, 0])
+            hi = torch.where(up, w[:, 3], w[:, 1])
+            bit = s & 31
+            s = 4 * (s & 15) | ((lo >> bit) & 1) | (((hi >> bit) & 1) << 1)
+        out[:, base:base + n] = own[:, :n]
+    return torch.stack([out & 0xFF, out >> 8], -1).reshape(
+        b, 2 * t2_max).to(torch.uint8)
+
+
+def test_warp_branch_metric_signs():
+    """The kernel's three signed sums per thread, each gathered from the
+    thread of its sign pattern, give every one of WS4's 256 branch metrics
+    (the DAB polynomials tap their first and last register bits), equal to
+    ``branch_metrics`` on erasure-heavy input."""
+    _, ws4_np = V.acs_radix4_matrices()
+    ws4 = torch.from_numpy(ws4_np)
+    r = ws4.view(4, 2, 32, 8)                     # (p, t >> 5, j, k)
+    torch.testing.assert_close(r[:, 1, :, :4], r[:, 0, :, :4])
+    torch.testing.assert_close(r[:, 1, :, 4:], -r[:, 0, :, 4:])
+    torch.testing.assert_close(r[1, 0, :, :4], -r[0, 0, :, :4])
+    torch.testing.assert_close(r[3, 0, :, :4], -r[2, 0, :, :4])
+    torch.testing.assert_close(r[1, 0, :, 4:], r[0, 0, :, 4:])
+    torch.testing.assert_close(r[2, 0, :, 4:], -r[0, 0, :, 4:])
+    torch.testing.assert_close(r[3, 0, :, 4:], -r[0, 0, :, 4:])
+    rng = np.random.default_rng(31)
+    soft = rng.integers(-2, 3, size=(40, 8)).astype(np.float32)
+    soft[rng.random(soft.shape) < 0.4] = 0.0
+    soft[:20] += rng.normal(size=(20, 8)).astype(np.float32)
+    s = torch.from_numpy(soft)
+    bm0, bm1 = _warp_branch_metrics(s, *_warp_signs(ws4))
+    want = V.branch_metrics(s.T[None].contiguous(), ws4)[0]   # (256, lanes)
+    got = torch.stack([bm0, bm1], 1).permute(0, 1, 3, 2).reshape(256, 40)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("t2_max,kind", [
+    (CHUNK - 1, "noisy"), (CHUNK - 1, "ties"), (CHUNK, "ties"),
+    (CHUNK + 1, "noisy"), (CHUNK + 1, "ties"), (2 * CHUNK + 3, "noisy"),
+    (2 * CHUNK + 3, "ties"), (1, "ties")])
+def test_warp_schedule_matches_plain(t2_max, kind):
+    """K1's and K2's warp schedules, emulated, against ``acs4_plain`` and
+    ``traceback4_plain``: lanes of length 0, 1, one chunk and the whole
+    width, T2 off a chunk multiple, and erasures (exact zeros) for ties.
+    Decisions, metrics and bits must be equal."""
+    rng = np.random.default_rng(1000 * t2_max + len(kind))
+    lanes = 7
+    if kind == "noisy":
+        soft = 1.0 - 2.0 * rng.integers(0, 2, size=(lanes, t2_max, 8))
+        soft = soft + rng.normal(scale=0.8, size=soft.shape)
+        soft[rng.random(soft.shape) < 1 / 3] = 0.0
+    else:
+        soft = rng.integers(-2, 3, size=(lanes, t2_max, 8)).astype(float)
+        soft[rng.random(soft.shape) < 0.5] = 0.0
+    soft8 = torch.from_numpy(soft.astype(np.float32))
+    lengths = [0, 1, CHUNK, t2_max, t2_max,
+               int(rng.integers(0, t2_max + 1)), t2_max - 1]
+    t2 = torch.tensor(np.minimum(lengths, t2_max), dtype=torch.int32)
+    ws4 = V._ws4(torch.device("cpu"))
+    dec, metric = _warp_acs4(soft8, t2, ws4)
+    dec_p, metric_p = V.acs4_plain(soft8, t2, ws4)
+    torch.testing.assert_close(dec, dec_p, rtol=0, atol=0)
+    torch.testing.assert_close(metric, metric_p, rtol=0, atol=0)
+    torch.testing.assert_close(_warp_traceback4(dec_p),
+                               V.traceback4_plain(dec_p), rtol=0, atol=0)
 
 
 def test_uep_candidate_metrics_match_jax():
