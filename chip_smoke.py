@@ -37,10 +37,36 @@ of which raises on failure:
    Then one warm ``process_block`` under PyTorch's sync debug mode
    'error' (nothing inside may wait for the device), and the steady-state
    ms/block and real-time multiple.
+5. TII: the flagship with TII (sub id 7, main id 31) in its null symbols,
+   impaired to u8 as in phase 4, through ``DabReceiver(n_frames=16,
+   tii=True)``: ``rx.tii()`` must give main id 31 and sub id 7, every ETI
+   payload must stay the modulator's, ``process_block(tii=True)`` must
+   pass the sync-free check, and phase 4's stream (no TII) must give
+   None.
+6. resampler: the flagship at 2.4 Msps (exact spectral resample) through
+   ``Resampler(2_400_000)`` and the receiver: ETI payloads must be the
+   modulator's; the resampler's input Msamples/s.
+7. wideband + dabscan: one 8.192 Msps u8 capture at 184.5 MHz with a
+   flagship-shaped mux of its own EId and label in 6A, 6C and 6D and
+   nothing in 6B.  ``Channelizer`` fft against direct with TF32 on
+   process-wide (within the JAX test's atol=2e-5) and each method's input
+   Msamples/s; ``dab2eti --wideband`` must write three ETI files with
+   each mux's payloads; ``dabscan`` (JSON and text) must find exactly the
+   three EIds and labels, ``--`` for 6B, with one K1 and one K2 launch
+   for all four candidate blocks.
+8. channel batch: 8 flagship streams (one modulation; each its own CFO,
+   start and noise seed) as one 8-frame ``channel_parallel_block``: one
+   K1 and one K2 launch for 2560 lanes = 8 x (32 FIC + 288 MSC); each
+   stream's FIB and sub-channel bytes equal its own ``process_block``,
+   rows >= 15 equal the modulator's payload; K1/K2 held against their
+   plain versions at that lane batch and timed; the batched ms per block
+   beside a single-stream 8-frame block and the device operations of
+   each (``torch.profiler``).
 
 Every path starts with all five launch counters at 0 and reads them
-when it ends.  The line before the last is the kernels' JSON record, with
-each kernel's bound: the larger of the bytes it must move over the
+when it ends.  Each phase prints its seconds.  The line before the last
+is the kernels' JSON record, with each kernel's bound: the larger of
+the bytes it must move over the
 card's memory rate and the operations it must do over its float32 rate
 (counted from this run's inputs; see :func:`_bound`).  The last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero and
@@ -49,24 +75,42 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from dabtools_tpu_torch import testsignal as S
+from dabtools_tpu_torch.cli import dab2eti, dabscan
+from dabtools_tpu_torch.constants import MODE_I
 from dabtools_tpu_torch.mod.convcode import conv_encode
+from dabtools_tpu_torch.mod.impairments import (
+    awgn,
+    carrier_offset,
+    quantize_u8,
+)
 from dabtools_tpu_torch.models.receiver import (
     DabReceiver,
     block_samples,
+    pre_viterbi,
     process_block,
+    to_host,
 )
 from dabtools_tpu_torch.ops import viterbi as V
 from dabtools_tpu_torch.ops import viterbi_cuda as K
+from dabtools_tpu_torch.ops.fir import Channelizer
+from dabtools_tpu_torch.ops.resample import Resampler
+from dabtools_tpu_torch.ops.sync import coarse_null_sync
+from dabtools_tpu_torch.parallel.channel import channel_parallel_block
+from dabtools_tpu_torch.tables.bandiii import BAND_III as BAND
 
 SEED = 20261016
 BLOCK_FRAMES = 16
@@ -81,6 +125,18 @@ R2_INFO_BITS = 3073             # trellis length 3079: odd, so radix-2
 R2_NOISE = 0.4                  # sigma per coded bit, Es/N0 4.95 dB
 R2_ERASED = 1 / 3               # share of soft bits set to exactly 0
 KERNEL_RUN = 20                 # kernel launches per pair of timing events
+TII = (7, 31)                   # (sub id, main id) of phase 5
+TII_FRAMES = 48
+RS_FRAMES = 48                  # phase 6: frames resampled from 2.4 Msps
+WB_RATE = 8_192_000
+WB_CENTER = 184_500_000         # 6A-6D inside the band
+WB_FRAMES = 32                  # 3 blocks of 8 frames; acquisition ~14
+WB_MUXES = {"6A": (0x6A01, "MUX 6A"), "6C": (0x6C03, "MUX 6C"),
+            "6D": (0x6D04, "MUX 6D")}
+BATCH = 8                       # phase 8: streams per batched block
+BATCH_FRAMES = 8
+BATCH_CFO_HZ = (-400.0, -250.0, -100.0, 50.0, 150.0, 250.0, 350.0, 450.0)
+FRAME_SIZE = MODE_I.frame_size
 
 # Bounds: NVIDIA H100 SXM data-sheet peaks.
 HBM_BYTES_PER_S = 3.35e12
@@ -144,6 +200,19 @@ def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     by_ops = n_ops / F32_OPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                           "operations")
+
+
+def _k1k2_bounds(lengths: np.ndarray, dec: torch.Tensor,
+                 bits: torch.Tensor, ws4: torch.Tensor):
+    """(K1's, K2's) bound for lanes of ``lengths`` trellis steps: K1 reads
+    the live soft bits, the lane lengths and ``ws4`` and writes the
+    decision words and metrics; K2 reads one decision word per plane per
+    live double step and writes the bits."""
+    b = dec.shape[0]
+    live = int(lengths.sum()) // 2                   # live lane-double-steps
+    return (_bound(live * 8 * 4 + dec.numel() * 4 + 4 * b
+                   + ws4.numel() * 4 + 4 * b, live * ACS4_OPS),
+            _bound(live * 8 + bits.numel(), 0))
 
 
 def time_ms(fn, reps: int, run: int = 1) -> float:
@@ -243,18 +312,13 @@ def kernel_phase(rng) -> dict:
     print(f"K1 acs4: {acs_ms:.4f} ms, {_us_per_step(acs_ms, n4 // 8)} "
           f"(plain {acs_plain_ms:.2f} ms); K2 traceback4: {tb_ms:.4f} ms, "
           f"{_us_per_step(tb_ms, n4 // 8)} (plain {tb_plain_ms:.2f} ms)")
-    live = int(lengths.sum()) // 2                   # live lane-double-steps
-    n_dec = dec_k.numel() * 4
-    tb_bytes = live * 8 + bits_k.numel()             # 2 words read per step
+    acs_bound, tb_bound = _k1k2_bounds(lengths, dec_k, bits_k, ws4)
     return {
         "records": {
             "acs4": {"max_abs_err": acs_err, "ms": acs_ms,
-                     "plain_ms": acs_plain_ms, "bound": _bound(
-                         live * 8 * 4 + n_dec + 4 * b + ws4.numel() * 4
-                         + 4 * b, live * ACS4_OPS)},
+                     "plain_ms": acs_plain_ms, "bound": acs_bound},
             "traceback4": {"max_abs_err": float(tb_err), "ms": tb_ms,
-                           "plain_ms": tb_plain_ms,
-                           "bound": _bound(tb_bytes, 0)}},
+                           "plain_ms": tb_plain_ms, "bound": tb_bound}},
         "msgs": msgs, "soft": soft, "lengths": lengths, "dec": dec_k,
         "bits_k": bits_k, "bits_p": bits_p}
 
@@ -402,22 +466,23 @@ def end_to_end_phase(rng) -> dict:
 
 
 def sync_free_check(rx, block_u8: np.ndarray) -> None:
-    """One warm ``process_block`` on the card under PyTorch's sync debug
-    mode 'error': any op inside that waits for the device (a
-    device->host read, a pageable upload) raises.  The block's one
-    upload happens before, its one download after."""
+    """One warm ``process_block`` on the card, as ``rx`` runs it (TII
+    included if ``rx`` has it on), under PyTorch's sync debug mode
+    'error': any op inside that waits for the device (a device->host
+    read, a pageable upload) raises.  The block's one upload happens
+    before, its one download after."""
     x = rx._upload(block_u8)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         process_block(x, rx._rings, rx._cif_count,
                       ensemble=rx._decode.decode_config(), mode=rx.mode,
-                      n_frames=rx.n_frames)
+                      n_frames=rx.n_frames, tii=rx._tii_enabled)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    print("process_block: no host synchronization inside "
-          "(sync debug mode 'error')")
+    print(f"process_block{' with TII' if rx._tii_enabled else ''}: no host "
+          f"synchronization inside (sync debug mode 'error')")
 
 
 def steady_state_phase(u8: np.ndarray, ens, card: str) -> float:
@@ -452,17 +517,313 @@ def steady_state_phase(u8: np.ndarray, ens, card: str) -> float:
     return ms
 
 
+def tii_phase(rng, u8_no_tii: np.ndarray) -> None:
+    """The flagship with TII in its null symbols, impaired to u8 as in
+    phase 4, through the TII receiver; then phase 4's stream (no TII).
+
+    Both streams start ``TIMING_OFFSET`` samples into frame 0 instead of
+    after a run of that many zeros: on the zeros, the first block's coarse
+    sync locks at 0, and its misplaced TII windows (data symbols) swamp
+    the accumulated noise floor, in the JAX receiver as in the port."""
+    ens = S.flagship_ensemble()
+    x, payload = S.modulate(ens, TII_FRAMES, rng, tii=TII)
+    u8 = S.impaired_u8(x, rng, SNR_DB, CFO_HZ, -TIMING_OFFSET)
+    rx = DabReceiver(n_frames=BLOCK_FRAMES, tii=True, device="cuda")
+    eti = rx.feed(u8)
+    det = rx.tii()
+    print(f"TII: {det} over {rx.device_steps} device steps")
+    if det is None or (det.sub_id, det.main_id) != TII:
+        raise AssertionError(f"TII detection: want sub/main {TII}, got "
+                             f"{det}")
+    if rx.ensemble is None or rx.ensemble.subchannels != ens.subchannels:
+        raise AssertionError("TII stream: no or a wrong ensemble")
+    n = S.check_eti_payloads(eti, payload,
+                             S.first_payload_cif(b"".join(eti), payload))
+    print(f"TII stream: {n} ETI frames, all 9 payloads byte-identical to "
+          f"the modulator's")
+    first = 2 * block_samples(BLOCK_FRAMES)
+    sync_free_check(rx, u8[first: 2 * first])
+    rx0 = DabReceiver(n_frames=BLOCK_FRAMES, tii=True, device="cuda")
+    rx0.feed(u8_no_tii[4 * TIMING_OFFSET: 2 * 40 * FRAME_SIZE])
+    if rx0.ensemble is None or rx0.tii() is not None:
+        raise AssertionError(f"stream without TII gave {rx0.tii()}")
+    print("stream without TII: rx.tii() is None")
+
+
+def resampler_phase(rng, card: str) -> None:
+    """The flagship at 2.4 Msps through the resampler and the receiver."""
+    ens = S.flagship_ensemble()
+    x, payload = S.modulate(ens, RS_FRAMES, rng)
+    x24 = S.fft_resample(awgn(x, SNR_DB, rng), int(round(x.size * 75 / 64)))
+    rs = Resampler(2_400_000, device="cuda")
+    rs(x24[:100_000])                                # warm-up, own stream
+    rs = Resampler(2_400_000, device="cuda")
+    t0 = time.perf_counter()
+    y = rs(x24)
+    dt = time.perf_counter() - t0
+    print(f"resampler: {x24.size} samples at 2.4 Msps -> {y.size} in "
+          f"{dt * 1e3:.1f} ms = {x24.size / dt / 1e6:.1f} input Msamples/s "
+          f"(host clock, upload and download included) on {card}")
+    rx = DabReceiver(n_frames=BLOCK_FRAMES, device="cuda")
+    eti = rx.feed(y)
+    if rx.ensemble is None:
+        raise AssertionError("resampled stream: no ensemble acquired")
+    raw = b"".join(eti)
+    n = S.check_eti_payloads(eti, payload, S.first_payload_cif(raw, payload))
+    print(f"resampled stream: {n} ETI frames, all 9 payloads "
+          f"byte-identical to the modulator's")
+
+
+def _channelizer_rate(x: np.ndarray, method: str) -> tuple[np.ndarray, float]:
+    """One call of a fresh channelizer of the capture's 4 blocks on the
+    whole capture (after a warm-up instance): (output, input Msamples/s,
+    host clock, upload and download included)."""
+    offs = [f - WB_CENTER for f in (BAND[b] for b in ("6A", "6B", "6C",
+                                                      "6D"))]
+    Channelizer(WB_RATE, offs, method=method, device="cuda")(x[:1 << 20])
+    ch = Channelizer(WB_RATE, offs, method=method, device="cuda")
+    t0 = time.perf_counter()
+    y = ch(x)
+    return y, x.size / (time.perf_counter() - t0) / 1e6
+
+
+def _run_cli(main_fn, argv: list[str]) -> tuple[int, list[str]]:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main_fn(argv)
+    return rc, out.getvalue().splitlines()
+
+
+def wideband_phase(rng, card: str) -> None:
+    """A 4-block capture through the channelizer (both methods),
+    ``dab2eti --wideband`` and ``dabscan``."""
+    t0 = time.perf_counter()
+    muxes = {b: S.flagship_ensemble(eid, label)
+             for b, (eid, label) in WB_MUXES.items()}
+    wide, payloads = S.wideband_capture(muxes, WB_CENTER, WB_RATE,
+                                        WB_FRAMES, rng)
+    print(f"wideband capture: {wide.size} samples at {WB_RATE / 1e6} Msps, "
+          f"muxes in {sorted(muxes)}, 6B empty "
+          f"({time.perf_counter() - t0:.1f} s to synthesize)")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yd, rate_d = _channelizer_rate(wide, "direct")
+        yf, rate_f = _channelizer_rate(wide, "fft")
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    n = min(yd.shape[1], yf.shape[1])
+    err = float(np.abs(yf[:, :n] - yd[:, :n]).max())
+    print(f"channelizer, TF32 on process-wide: fft vs direct max |diff| "
+          f"{err:.3g} (limit 2e-05); input Msamples/s: fft {rate_f:.1f}, "
+          f"direct {rate_d:.1f} (host clock, one call on the whole capture, "
+          f"upload and download included) on {card}")
+    if not err <= 2e-5:
+        raise AssertionError("channelizer fft and direct disagree")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cap = pathlib.Path(tmp) / "wide.u8"
+        quantize_u8(wide).tofile(cap)
+        outdir = pathlib.Path(tmp) / "eti"
+        t0 = time.perf_counter()
+        rc, _ = _run_cli(dab2eti.main, [
+            "--torch-device", "cuda", "--format", "u8", "--wideband",
+            str(WB_CENTER), "--rate", str(WB_RATE), str(cap), "-o",
+            str(outdir)])
+        dt = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"dab2eti --wideband exited {rc}")
+        for block, pl in payloads.items():
+            raw = (outdir / f"{block}.eti").read_bytes()
+            frames = [raw[k:k + 6144] for k in range(0, len(raw), 6144)]
+            n = S.check_eti_payloads(frames, pl,
+                                     S.first_payload_cif(raw, pl))
+            if n < 16:
+                raise AssertionError(f"{block}: only {n} ETI frames")
+            print(f"dab2eti --wideband {block}: {n} ETI frames, all 9 "
+                  f"payloads byte-identical to the mux's")
+        if (outdir / "6B.eti").stat().st_size:
+            raise AssertionError("6B (empty) produced ETI frames")
+        print(f"dab2eti --wideband: 4 blocks of {WB_FRAMES} frames in "
+              f"{dt:.2f} s = {wide.size / dt / 1e6:.1f} input Msamples/s "
+              f"(file to ETI files, u8 input, 8-frame blocks)")
+
+        scan = ["--torch-device", "cuda", "--format", "u8", "--center",
+                str(WB_CENTER), "--rate", str(WB_RATE), str(cap)]
+        _reset_counts()
+        rc, lines = _run_cli(dabscan.main, ["--json", *scan])
+        launches = _counts()
+        recs = {r["block"]: r for r in map(json.loads, lines)}
+        print("dabscan --json: " + ", ".join(
+            f"{b} {r.get('eid', '--')} {r.get('label', '')}".strip()
+            for b, r in sorted(recs.items())))
+        print(f"dabscan launches: {launches}")
+        if rc != 0 or set(recs) != {"6A", "6B", "6C", "6D"}:
+            raise AssertionError(f"dabscan: rc {rc}, blocks {sorted(recs)}")
+        for block, (eid, label) in WB_MUXES.items():
+            if (recs[block].get("eid"), recs[block].get("label")) != (
+                    f"0x{eid:04X}", label):
+                raise AssertionError(f"dabscan {block}: {recs[block]}")
+        if "eid" in recs["6B"]:
+            raise AssertionError("dabscan found an ensemble in 6B")
+        if (launches["acs4"], launches["traceback4"]) != (1, 1):
+            raise AssertionError("dabscan's FIC pass is not one K1 and one "
+                                 "K2 launch")
+        rc, lines = _run_cli(dabscan.main, scan)
+        b_line = next(line for line in lines if line.startswith("6B"))
+        print(f"dabscan: {' | '.join(lines)}")
+        if rc != 0 or "--" not in b_line:
+            raise AssertionError("dabscan text output")
+
+
+def _device_ops(fn) -> str:
+    """Device operations (kernels, copies, sets) ``fn`` runs, from a
+    ``torch.profiler`` trace of one call, or "not measured"."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type.name == "CUDA")
+    return str(n) if n else "not measured"
+
+
+def channel_batch_phase(rng, card: str) -> None:
+    """8 flagship streams as one batched block."""
+    ens = S.flagship_ensemble()
+    x, payload = S.modulate(ens, BATCH_FRAMES + 3, rng)
+    n = block_samples(BATCH_FRAMES)
+    starts = [300 + 9000 * c for c in range(BATCH)]
+    xs = np.stack([
+        awgn(carrier_offset(x[st:], cfo), SNR_DB, rng)[:n]
+        for st, cfo in zip(starts, BATCH_CFO_HZ)])
+    xd = torch.from_numpy(xs).cuda()
+    dec = ens.decode_config()
+    subs = dec.subchannels
+    cif0 = torch.tensor(0, dtype=torch.int32, device="cuda")
+
+    def rings(lead=()):
+        return {str(s.subchid): torch.zeros(
+            (*lead, 16, s.profile.tx_bits), device="cuda") for s in subs}
+
+    def batched():
+        out, _, _ = channel_parallel_block(xd, rings((BATCH,)), cif0,
+                                           ensemble=dec,
+                                           n_frames=BATCH_FRAMES)
+        return to_host(out)
+
+    def single(c=0):
+        out, _, _ = process_block(xd[c], rings(), cif0, ensemble=dec,
+                                  n_frames=BATCH_FRAMES)
+        return to_host(out)
+
+    _reset_counts()
+    out = batched()
+    launches = _counts()
+    print(f"channel batch launches: {launches}")
+    if (launches["acs4"], launches["traceback4"]) != (1, 1):
+        raise AssertionError("the batch is not one K1 and one K2 launch")
+
+    # the batch's one lane batch, as channel_parallel_block builds it
+    jobs = []
+    for c in range(BATCH):
+        sync = coarse_null_sync(xd[c])
+        off = torch.arange(BATCH_FRAMES, dtype=torch.int32,
+                           device="cuda") * FRAME_SIZE
+        jobs += pre_viterbi(xd[c], sync["null_start"] + off, rings(), cif0,
+                            ensemble=dec)[2]
+    soft, lengths = V.ragged_lanes(jobs)
+    print(f"channel batch lanes: {soft.shape[0]} = {BATCH} x (32 FIC + 288 "
+          f"MSC), {soft.shape[1] // 8} double steps")
+    if soft.shape[0] != BATCH * (32 + 288):
+        raise AssertionError("unexpected lane count")
+
+    n_rows = BATCH_FRAMES * 4
+    for c in range(BATCH):
+        ref = single(c)
+        if not np.array_equal(out["fib_bytes"][c], ref["fib_bytes"]):
+            raise AssertionError(f"stream {c}: FIB bytes differ from its "
+                                 f"process_block")
+        for s in subs:
+            key = str(s.subchid)
+            if not np.array_equal(out["subch"][key][c], ref["subch"][key]):
+                raise AssertionError(f"stream {c} subch {key}: bytes "
+                                     f"differ from its process_block")
+            # the stream starts inside frame 0: its CIF 0 is frame 1's
+            for j in range(15, n_rows):
+                if (out["subch"][key][c, j].tobytes()
+                        != payload[s.subchid][4 + j - 15].tobytes()):
+                    raise AssertionError(f"stream {c} subch {key} row {j} "
+                                         f"differs from the modulator's")
+    print(f"channel batch: {BATCH} streams' FIB and sub-channel bytes equal "
+          f"their own process_block; rows 15-{n_rows - 1} of all 9 "
+          f"sub-channels equal the modulator's payload")
+
+    b, n4 = soft.shape
+    soft8 = soft.reshape(b, n4 // 8, 8)
+    t2 = torch.from_numpy((lengths // 2).astype(np.int32)).cuda()
+    ws4 = V._ws4(soft.device)
+    dec_k, bits_k, *_ = hold_k1k2(soft8, t2, ws4,
+                                  f"channel batch, {b} lanes")
+    acs_ms = time_ms(lambda: K.acs4(soft8, t2, ws4), 10, KERNEL_RUN)
+    tb_ms = time_ms(lambda: K.traceback4(dec_k), 10, KERNEL_RUN)
+    acs_bound, tb_bound = _k1k2_bounds(lengths, dec_k, bits_k, ws4)
+    print(f"K1 acs4 at {b} lanes: {acs_ms:.4f} ms, "
+          f"{_us_per_step(acs_ms, n4 // 8)}, bound {acs_bound[0]:.4f} ms by "
+          f"{acs_bound[1]}; K2 traceback4: {tb_ms:.4f} ms, "
+          f"{_us_per_step(tb_ms, n4 // 8)}, bound {tb_bound[0]:.4f} ms by "
+          f"{tb_bound[1]}; on {card}")
+
+    walls = {"batched": [], "single": []}
+    for _ in range(7):
+        for name, fn in (("batched", batched), ("single", single)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            walls[name].append(time.perf_counter() - t0)
+    tb = statistics.median(walls["batched"][1:]) * 1e3
+    t1 = statistics.median(walls["single"][1:]) * 1e3
+    sig = BATCH_FRAMES * 96.0                      # ms of signal per stream
+    print(f"channel batch: {tb:.2f} ms per batched block of {BATCH} x "
+          f"{BATCH_FRAMES} frames = {BATCH * sig / tb:.1f}x real time "
+          f"aggregate, {sig / tb:.1f}x per stream; single stream: "
+          f"{t1:.2f} ms per {BATCH_FRAMES}-frame block = {sig / t1:.1f}x; "
+          f"batched / ({BATCH} x single) = {tb / (BATCH * t1):.3f} (host "
+          f"clock, median of 6 after a warm-up, device-resident complex64 "
+          f"input, ending in the one download) on {card}")
+    print(f"device operations per block: batched {_device_ops(batched)}, "
+          f"single {_device_ops(single)} (torch.profiler)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     card = device_phase()
+    t_start = time.perf_counter()
     build_phase()
     rng = np.random.default_rng(SEED)
-    kern = kernel_phase(rng)
-    r2 = radix2_phase(rng)
-    oh = onehot_phase(kern)
-    e2e = end_to_end_phase(rng)
-    steady_state_phase(e2e["u8"], e2e["ensemble"], card)
+    seconds = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        print(f"phase {name}: {seconds[name]:.1f} s")
+        return res
+
+    kern = phase("kernels", kernel_phase, rng)
+    r2 = phase("radix-2", radix2_phase, rng)
+    oh = phase("one-hot", onehot_phase, kern)
+    e2e = phase("end-to-end", end_to_end_phase, rng)
+    phase("steady state", steady_state_phase, e2e["u8"], e2e["ensemble"],
+          card)
+    phase("TII", tii_phase, rng, e2e["u8"])
+    phase("resampler", resampler_phase, rng, card)
+    phase("wideband + dabscan", wideband_phase, rng, card)
+    phase("channel batch", channel_batch_phase, rng, card)
+    print(f"all phases: {time.perf_counter() - t_start:.1f} s (build "
+          f"included)")
     # Each kernel's launches come from the path that drives it: K1/K2 from
     # the end-to-end decode, K3/K4 from the radix-2 decode, K2' from the
     # onehot64 decode.

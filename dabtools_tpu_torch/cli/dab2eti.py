@@ -4,18 +4,22 @@ Usage:
   python -m dabtools_tpu_torch.cli.dab2eti capture.iq > out.eti
   python -m dabtools_tpu_torch.cli.dab2eti --format cf32 - < cap.cf32 > out.eti
 
-Reads 2.048 Msps IQ from a file or stdin (u8 offset-128 interleaved, s8,
-s16 or complex64) and decodes on ``--torch-device`` (default ``cuda``;
-without CUDA the command fails rather than running on the CPU).  Port of
-``dabtools_tpu/cli/dab2eti.py``'s file/stdin path; its input readers
-(``CHUNK``, ``_FORMATS``, ``decode_iq``, ``iter_samples``) are verbatim
-copies.
+Reads IQ from a file or stdin (u8 offset-128 interleaved, s8, s16 or
+complex64) or a live RTL-SDR (``--device rtlsdr``), and decodes on
+``--torch-device`` (default ``cuda``; without CUDA the command fails
+rather than running on the CPU).  Other rates than 2.048 Msps go through
+the polyphase resampler (``--rate``); ``--wideband`` channelizes every
+Band III block inside the capture and writes one file per block.  Port
+of ``dabtools_tpu/cli/dab2eti.py``, with its argument checks and log
+lines; its input readers (``CHUNK``, ``_FORMATS``, ``decode_iq``,
+``iter_samples``) are verbatim copies.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import pathlib
 import sys
 
 import numpy as np
@@ -23,11 +27,14 @@ import torch
 
 from dabtools_tpu_torch import constants as C
 from dabtools_tpu_torch.eti.edi import EdiWriter
+from dabtools_tpu_torch.frontend.rtlsdr import RtlSdrSource
+from dabtools_tpu_torch.mod.impairments import u8_to_complex
 from dabtools_tpu_torch.models.receiver import DabReceiver
+from dabtools_tpu_torch.ops.fir import Channelizer
+from dabtools_tpu_torch.ops.resample import Resampler
+from dabtools_tpu_torch.tables.bandiii import blocks_within
 
 log = logging.getLogger("dabtools_tpu_torch.dab2eti")
-
-_NOT_PORTED = "is not ported to the PyTorch receiver yet (see ROADMAP.md)"
 
 CHUNK = 1 << 22
 
@@ -77,12 +84,83 @@ def iter_samples(path: str, fmt: str):
             f.close()
 
 
+def _wideband(args, mode, n_frames) -> int:
+    """Wideband capture -> channelizer -> one ETI/EDI file per Band III
+    block under the -o directory; each block runs through its own
+    streaming DabReceiver for per-block sync state."""
+    fs = int(args.rate)
+    if fs % C.SAMPLE_RATE:
+        log.error("--wideband needs --rate = n x 2.048 MHz (got %.4f MHz)",
+                  fs / 1e6)
+        return 2
+    if args.output == "-":
+        log.error("--wideband writes one file per block; -o must be a "
+                  "directory")
+        return 2
+    cands = blocks_within(args.wideband, fs)
+    if args.blocks:
+        want = {b.strip().upper() for b in args.blocks.split(",")}
+        unknown = want - {n for n, _ in cands}
+        if unknown:
+            log.error("blocks %s not inside the capture band (have %s)",
+                      sorted(unknown), [n for n, _ in cands])
+            return 2
+        cands = [(n, f) for n, f in cands if n in want]
+    if not cands:
+        log.error("no Band III blocks inside the capture bandwidth")
+        return 1
+    outdir = pathlib.Path(args.output)
+    outdir.mkdir(parents=True, exist_ok=True)
+    ch = Channelizer(fs, offsets_hz=[int(f - args.wideband)
+                                     for _, f in cands],
+                     device=args.torch_device)
+    log.info("channelizing %.4f Msps -> %d blocks: %s (%d taps)",
+             fs / 1e6, len(cands), [n for n, _ in cands], ch.num_taps)
+    ext = "edi" if args.edi else "eti"
+    rxs, outs, edis, counts = {}, {}, {}, {}
+    for name, _ in cands:
+        rxs[name] = DabReceiver(n_frames=n_frames, mode=mode,
+                                device=args.torch_device)
+        outs[name] = open(outdir / f"{name}.{ext}", "wb")
+        counts[name] = 0
+        if args.edi:
+            edis[name] = EdiWriter(mode=mode)
+    try:
+        for chunk in iter_samples(args.input, args.format):
+            if chunk.dtype == np.uint8:
+                chunk = u8_to_complex(chunk)
+            y = ch(chunk)
+            for i, (name, _) in enumerate(cands):
+                for frame in rxs[name].feed(y[i]):
+                    if args.edi:
+                        for pkt in edis[name].from_eti_bytes(frame):
+                            outs[name].write(pkt)
+                    else:
+                        outs[name].write(frame)
+                    counts[name] += 1
+    finally:
+        for f in outs.values():
+            f.close()
+    n_found = 0
+    for name, freq in cands:
+        ens = rxs[name].ensemble
+        if ens is None:
+            log.info("block %s (%.3f MHz): no ensemble", name, freq / 1e6)
+            continue
+        n_found += 1
+        log.info("block %s (%.3f MHz): ensemble 0x%04X %r -> %d %s frames",
+                 name, freq / 1e6, ens.eid, ens.label, counts[name],
+                 ext.upper())
+    return 0 if n_found else 1
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="dab2eti", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("input", nargs="?", default="-",
-                   help="IQ file path, or '-' for stdin")
+                   help="IQ file path, or '-' for stdin (ignored with "
+                        "--device rtlsdr)")
     p.add_argument("--format", choices=("u8", "s8", "s16", "cf32"),
                    default="u8",
                    help="u8: RTL-SDR unsigned 8-bit interleaved IQ; "
@@ -92,9 +170,23 @@ def main(argv=None) -> int:
                    default="cuda",
                    help="device the receiver runs on (default cuda)")
     p.add_argument("--device", choices=("file", "rtlsdr"), default="file",
-                   help="input source; only 'file' (path/stdin) is ported")
+                   help="input source: 'file' (default; path/stdin) or "
+                        "'rtlsdr' (live librtlsdr dongle; needs "
+                        "--frequency, like the reference dab2eti)")
+    p.add_argument("--rtlsdr-lib", default=None, metavar="PATH",
+                   help="explicit librtlsdr.so path")
+    p.add_argument("--rtlsdr-index", type=int, default=0,
+                   help="RTL-SDR device index")
+    p.add_argument("--frequency", type=float, default=None,
+                   help="RF centre frequency in Hz (tunes the dongle with "
+                        "--device rtlsdr; informational for file input)")
     p.add_argument("--rate", type=float, default=2_048_000,
-                   help="input sample rate; only 2.048 Msps is ported")
+                   help="input sample rate; rates rationally related to "
+                        "2.048 Msps (e.g. the RTL-SDR-native 2.4 Msps) are "
+                        "converted by the polyphase resampler")
+    p.add_argument("--gain", type=float, default=None,
+                   help="tuner gain in dB with --device rtlsdr "
+                        "(default: AGC)")
     p.add_argument("--mode", choices=("I", "II", "III", "IV"), default="I",
                    help="DAB transmission mode (Mode III requires "
                         "--frames-per-block to be a multiple of 3)")
@@ -121,22 +213,28 @@ def main(argv=None) -> int:
                    help="TIST from an external time source: UTC/GPS "
                         "seconds timestamp of the capture's first sample")
     p.add_argument("--tii", action="store_true",
-                   help="transmitter identification (not ported yet)")
+                   help="detect transmitter identification (TII) from the "
+                        "null symbol and report it at exit")
     p.add_argument("--wideband", type=float, default=None,
                    metavar="CENTER_HZ",
-                   help="wideband channelizer input (not ported yet)")
+                   help="treat the input as a wideband capture centred "
+                        "here: channelize every Band III block in band "
+                        "and decode each to <block>.eti under -o DIR")
+    p.add_argument("--blocks", default=None, metavar="5C,5D,...",
+                   help="with --wideband: decode only these blocks")
     args = p.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(name)s: %(message)s")
-    if args.device != "file":
-        p.error(f"--device {args.device} {_NOT_PORTED}")
-    if int(args.rate) != 2_048_000:
-        p.error(f"--rate other than 2.048e6 (the resampler) {_NOT_PORTED}")
-    if args.tii:
-        p.error(f"--tii {_NOT_PORTED}")
-    if args.wideband is not None:
-        p.error(f"--wideband {_NOT_PORTED}")
+    if args.device == "rtlsdr" and args.frequency is None:
+        p.error("--device rtlsdr requires --frequency")
+    if args.wideband is not None and args.device != "file":
+        p.error("--wideband reads a wideband capture file/stream; it does "
+                "not drive an SDR frontend (the RTL-SDR samples a single "
+                "2.048 MHz block)")
+    if args.frequency and args.device == "file":
+        log.info("frequency %.3f MHz (file/stream input; not tuning)",
+                 args.frequency / 1e6)
     if sum((args.tist, args.tist_utc, args.tist_epoch is not None)) > 1:
         p.error("--tist, --tist-utc and --tist-epoch are mutually "
                 "exclusive (each picks a different timestamp anchor)")
@@ -147,18 +245,54 @@ def main(argv=None) -> int:
 
     mode = C.MODES[args.mode]
     n_frames = args.frames_per_block or (6 if args.mode == "III" else 8)
+    if args.wideband is not None:
+        return _wideband(args, mode, n_frames)
     tist = (args.tist_epoch if args.tist_epoch is not None
             else "utc" if args.tist_utc else args.tist)
     out = sys.stdout.buffer if args.output == "-" else open(args.output, "wb")
     rx = DabReceiver(n_frames=n_frames, mode=mode,
-                     stats_jsonl=args.stats_json, tist=tist,
+                     stats_jsonl=args.stats_json, tii=args.tii, tist=tist,
                      device=args.torch_device)
+    resampler = None
+    if int(args.rate) != 2_048_000:
+        resampler = Resampler(int(args.rate), device=args.torch_device)
+        log.info("resampling %.4f Msps -> 2.048 Msps (L/M = %d/%d)",
+                 args.rate / 1e6, resampler.up, resampler.down)
     edi = None
     if args.edi:
         edi = EdiWriter(mode=mode)
+
+    sdr = None
+    if args.device == "rtlsdr":
+        # The dongle streams at --rate (e.g. the RTL-native 2.4 Msps);
+        # the resampler converts to 2.048 Msps.
+        sdr = RtlSdrSource(args.frequency, gain_db=args.gain,
+                           device_index=args.rtlsdr_index,
+                           sample_rate=int(args.rate),
+                           lib_path=args.rtlsdr_lib)
+
+        def live_blocks(block=1 << 20):
+            try:
+                while True:
+                    chunk = sdr.read_block(block)
+                    if chunk.size == 0:      # stream cancelled / unplugged
+                        return
+                    yield chunk
+            except KeyboardInterrupt:
+                return
+
+        samples = live_blocks()
+    else:
+        samples = iter_samples(args.input, args.format)
     n_eti = 0
     try:
-        for chunk in iter_samples(args.input, args.format):
+        for chunk in samples:
+            if resampler is not None:
+                if chunk.dtype == np.uint8:   # resampler works on cf32
+                    chunk = u8_to_complex(chunk)
+                chunk = resampler(chunk)
+                if chunk.size == 0:
+                    continue
             for frame in rx.feed(chunk):
                 if edi is not None:
                     for pkt in edi.from_eti_bytes(frame):
@@ -175,8 +309,20 @@ def main(argv=None) -> int:
                          s.fib_crc_ok, s.fib_crc_bad)
         out.flush()
     finally:
+        if sdr is not None:
+            sdr.close()
+            if sdr.dropped_bytes:
+                log.warning("rtlsdr ring dropped %d bytes (receiver slower "
+                            "than 2.048 Msps?)", sdr.dropped_bytes)
         if args.output != "-":
             out.close()
+    if args.tii:
+        det = rx.tii()
+        if det is None:
+            log.info("TII: none detected")
+        else:
+            log.info("TII: main id %d, sub id %d (snr %.1f)",
+                     det.main_id, det.sub_id, det.snr)
     if rx.ensemble is None:
         log.error("no ensemble acquired (insufficient or undecodable input)")
         return 1

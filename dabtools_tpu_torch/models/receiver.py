@@ -45,14 +45,12 @@ from dabtools_tpu_torch.ops.sync import (
     fractional_cfo,
     null_ratio_to_snr_db,
 )
+from dabtools_tpu_torch.ops.tii import solve_tii, tii_powers_at
 from dabtools_tpu_torch.ops.viterbi import viterbi_decode_ragged
 from dabtools_tpu_torch.tables.puncturing import FIC_PROFILE
 from dabtools_tpu_torch.utils.crc import crc16_ok_batch
 
 log = logging.getLogger("dabtools_tpu_torch.receiver")
-
-_TII_NOT_PORTED = ("TII detection (ops/tii.py) is not ported yet: see "
-                   "ROADMAP.md, Queue 1")
 
 
 def block_samples(n_frames: int, mode=C.MODE_I, margin: int = 4096) -> int:
@@ -71,18 +69,21 @@ def _median(v: torch.Tensor) -> torch.Tensor:
     return (s[n // 2 - 1] + s[n // 2]) / 2
 
 
-def pipeline_core(x, frame_start_guesses, rings, cif_count, *,
-                  ensemble: Ensemble | None, mode=C.MODE_I,
-                  search: int = 192, max_int_cfo: int = 8,
-                  sync_diag: dict | None = None,
-                  probe_subs: tuple = ()):
-    """The shared demod+decode chain, from per-frame start *guesses*.
+def pre_viterbi(x, frame_start_guesses, rings, cif_count, *,
+                ensemble: Ensemble | None, mode=C.MODE_I,
+                search: int = 192, max_int_cfo: int = 8,
+                sync_diag: dict | None = None, probe_subs: tuple = ()):
+    """The demod chain up to the Viterbi, from per-frame start *guesses*.
 
     ``x``: (n,) complex64 block; ``frame_start_guesses``: (n_frames,)
     integer tensor, start of each frame's null symbol, refined per frame
     by PRS fine sync; ``rings``: {subchid str: (16, n_bits) tensor};
     ``cif_count``: 0-dim int32 tensor.  All on one device; nothing here
-    reads a value back to the host.  Returns ``(out, rings', cif_count')``.
+    reads a value back to the host.  Returns ``(out, rings', jobs,
+    groups)``: the block's diagnostics so far, the advanced rings, the
+    depunctured codeword batches (FIC first, then one per puncturing
+    profile) and the sub-channels of each profile, which
+    :func:`post_viterbi` needs.
     """
     n_frames = frame_start_guesses.shape[0]
     frac = fractional_cfo(x, frame_start_guesses[0], mode)
@@ -182,13 +183,21 @@ def pipeline_core(x, frame_start_guesses, rings, cif_count, *,
                 new_rings[key] = ring
                 aligned_all.append(aligned)
             jobs.append(depuncture(torch.cat(aligned_all, dim=0), profile))
-    decoded = viterbi_decode_ragged(jobs)
+    return out, new_rings, jobs, groups
 
+
+def post_viterbi(out: dict, groups: dict, decoded: list, n_frames: int,
+                 mode=C.MODE_I) -> dict:
+    """The chain after the Viterbi: descramble and pack the decoded bits
+    of :func:`pre_viterbi`'s ``jobs`` (``decoded``, in the same order)
+    into ``out``'s FIB bytes and sub-channel rows.  Returns ``out``."""
+    n_cifs = n_frames * mode.n_cifs
     fic_bits, fic_metric = decoded[0]
     out["fib_bytes"] = pack_bits(descramble(fic_bits)).reshape(
         n_frames, mode.n_fibs, C.FIB_BYTES)
     out["fic_metric"] = (fic_metric.reshape(n_frames, -1)
-                         if n_cw_total % n_frames == 0 else fic_metric)
+                         if fic_bits.shape[0] % n_frames == 0
+                         else fic_metric)
     for (profile, subs), (bits, metric) in zip(groups.items(),
                                                decoded[1:]):
         data = pack_bits(descramble(bits))   # (batch, data_bytes)
@@ -197,17 +206,39 @@ def pipeline_core(x, frame_start_guesses, rings, cif_count, *,
             sl = slice(k * n_cifs, (k + 1) * n_cifs)
             out["subch"][key] = data[sl]
             out["subch_metric"][key] = metric[sl]
+    return out
+
+
+def pipeline_core(x, frame_start_guesses, rings, cif_count, *,
+                  ensemble: Ensemble | None, mode=C.MODE_I,
+                  search: int = 192, max_int_cfo: int = 8,
+                  sync_diag: dict | None = None,
+                  probe_subs: tuple = ()):
+    """The shared demod+decode chain: :func:`pre_viterbi`, the block's ONE
+    ragged Viterbi dispatch, :func:`post_viterbi`.  Arguments as
+    :func:`pre_viterbi`'s.  Returns ``(out, rings', cif_count')``.
+    """
+    n_frames = frame_start_guesses.shape[0]
+    out, new_rings, jobs, groups = pre_viterbi(
+        x, frame_start_guesses, rings, cif_count, ensemble=ensemble,
+        mode=mode, search=search, max_int_cfo=max_int_cfo,
+        sync_diag=sync_diag, probe_subs=probe_subs)
+    post_viterbi(out, groups, viterbi_decode_ragged(jobs), n_frames, mode)
     return out, new_rings, cif_count + n_frames * mode.n_cifs
 
 
 def process_block(x, rings, cif_count, *, ensemble: Ensemble | None,
                   mode=C.MODE_I, n_frames: int = 8, search: int = 192,
-                  max_int_cfo: int = 8, probe_subs: tuple = ()):
+                  max_int_cfo: int = 8, probe_subs: tuple = (),
+                  tii: bool = False):
     """Decode ``n_frames`` transmission frames from sample block ``x``.
 
     Coarse-syncs on the null symbol, then runs :func:`pipeline_core`.
     Returns ``(out, rings, cif_count')``.  ``ensemble=None`` is the
-    FIC-only acquisition pass.
+    FIC-only acquisition pass.  ``tii`` adds the block's TII pair powers
+    and noise floor (``ops.tii.tii_powers_at`` at the coarse null
+    position) to ``out`` as ``tii_powers`` and ``tii_floor``, so they
+    come home in the block's one device->host copy.
 
     ``x`` may be complex64 samples OR raw uint8 offset-128 interleaved IQ
     (the RTL-SDR wire format, 2 bytes/sample), converted on the device, so
@@ -220,10 +251,13 @@ def process_block(x, rings, cif_count, *, ensemble: Ensemble | None,
     ns = sync["null_start"]
     frame_off = torch.arange(n_frames, dtype=torch.int32,
                              device=x.device) * mode.frame_size
+    sync_diag = {"null_start": ns, "null_ratio": sync["null_ratio"]}
+    if tii:
+        t = tii_powers_at(x, ns, n_frames, mode)
+        sync_diag.update(tii_powers=t["powers"], tii_floor=t["floor"])
     return pipeline_core(
         x, ns + frame_off, rings, cif_count, ensemble=ensemble, mode=mode,
-        search=search, max_int_cfo=max_int_cfo,
-        sync_diag={"null_start": ns, "null_ratio": sync["null_ratio"]},
+        search=search, max_int_cfo=max_int_cfo, sync_diag=sync_diag,
         probe_subs=probe_subs)
 
 
@@ -321,8 +355,6 @@ class DabReceiver:
                  ensemble: Ensemble | None = None, emit_eti: bool = True,
                  stats_jsonl=None, tii: bool = False, tist: bool = False,
                  uep_autoprobe: bool = True, *, device):
-        if tii:
-            raise NotImplementedError(_TII_NOT_PORTED)
         self.device = torch.device(device)
         self.mode = mode
         self.n_frames = n_frames
@@ -335,6 +367,11 @@ class DabReceiver:
         # "utc" = this host's wall clock at activation; a float = the
         # UTC/GPS seconds timestamp of stream sample 0.
         self._tist_enabled = tist
+        # TII accumulation across blocks (EN 300 401 s14.8; ops/tii.py),
+        # in float64 on the host, as the JAX receiver accumulates it.
+        self._tii_enabled = tii
+        self._tii_powers = np.zeros((24, 8), dtype=np.float64)
+        self._tii_floor = 0.0
         self.emit_eti = emit_eti
         # Input ring: caller-provided chunks consumed by view slicing.
         self._chunks: list[np.ndarray] = []
@@ -457,6 +494,16 @@ class DabReceiver:
             else:
                 self._chunks[0] = c[n:]
                 n = 0
+
+    def tii(self, min_snr: float = 3.0):
+        """Best transmitter identification accumulated so far, or None.
+
+        Requires ``tii=True`` at construction; returns
+        :class:`dabtools_tpu_torch.ops.tii.TiiDetection`.
+        """
+        if not self._tii_enabled or self._tii_floor == 0.0:
+            return None
+        return solve_tii(self._tii_powers, self._tii_floor, min_snr)
 
     # ------------------------------------------------------- internals
     def _activate(self, ensemble: Ensemble) -> None:
@@ -605,13 +652,18 @@ class DabReceiver:
         out_dev, rings, cif_next = process_block(
             self._upload(x), self._rings or {}, self._cif_count,
             ensemble=ens, mode=self.mode, n_frames=self.n_frames,
-            probe_subs=self._probe_subs)
+            probe_subs=self._probe_subs, tii=self._tii_enabled)
         self.device_steps += 1
         out = to_host(out_dev)                 # the block's one D2H copy
         self._cif_count = cif_next
         self._cif_host = cif0 + self.n_frames * self.mode.n_cifs
         if self.ensemble is not None:
             self._rings = rings
+        # Every pass accumulates, replays included, as in the JAX receiver.
+        if self._tii_enabled:
+            self._tii_powers += np.asarray(out["tii_powers"],
+                                           dtype=np.float64)
+            self._tii_floor += float(out["tii_floor"])
 
         # FIBs arrive packed from the device: (B, 12, 32) uint8.  All CRCs
         # for the block are checked in ONE native call.

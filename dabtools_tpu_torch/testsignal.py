@@ -1,5 +1,7 @@
 """Known-answer signals for exercising the port: the flagship mux as
-impaired u8 IQ, and coded Viterbi lanes with their messages.
+impaired u8 IQ (optionally with TII), at another sample rate, or several
+such muxes in one wideband Band III capture; and coded Viterbi lanes with
+their messages.
 
 Host-side NumPy, built on the port's copies of the transmitter modules
 (``mod.modulator``, ``mod.impairments``, ``mod.convcode``, ``fic``,
@@ -31,10 +33,12 @@ from dabtools_tpu_torch.mod.impairments import (
 )
 from dabtools_tpu_torch.mod.modulator import Modulator, SubchannelSource
 from dabtools_tpu_torch.ops.fec import depuncture
+from dabtools_tpu_torch.tables.bandiii import BAND_III
 from dabtools_tpu_torch.tables.puncturing import FIC_PROFILE, eep_profile
 
 
-def flagship_ensemble() -> Ensemble:
+def flagship_ensemble(eid: int = 0x4FFF,
+                      label: str = "FLAGSHIP") -> Ensemble:
     """A full Mode I mux: 9 x 128 kbit/s EEP 3-A = 864/864 CUs."""
     subs = tuple(
         Subchannel.eep(i, start_cu=96 * i, level=3, option="A",
@@ -44,17 +48,17 @@ def flagship_ensemble() -> Ensemble:
         Service(sid=0x100 + i, label=f"SVC {i}", components=(
             ServiceComponent(tmid=0, subchid=i),))
         for i in range(9))
-    return Ensemble(eid=0x4FFF, subchannels=subs, services=svcs,
-                    label="FLAGSHIP")
+    return Ensemble(eid=eid, subchannels=subs, services=svcs, label=label)
 
 
-def modulate(ens: Ensemble, n_frames: int, rng):
+def modulate(ens: Ensemble, n_frames: int, rng, tii=None):
     """Complex64 baseband of ``n_frames`` Mode I frames of ``ens`` with
-    random payloads; returns (samples, {subchid: (n_cifs, data_bytes)
+    random payloads, and TII ``(sub_id, main_id)`` in the null symbol if
+    ``tii`` is given; returns (samples, {subchid: (n_cifs, data_bytes)
     uint8})."""
     order = [s.subchid for s in ens.sorted_subchannels()]
     mod = Modulator([SubchannelSource(s.start_cu, s.profile)
-                     for s in ens.sorted_subchannels()])
+                     for s in ens.sorted_subchannels()], tii=tii)
     n_cifs = n_frames * C.MODE_I.n_cifs
     payloads = {sc: np.unpackbits(rng.integers(
         0, 256, size=(n_cifs, ens.subchannel(sc).data_bytes),
@@ -72,6 +76,47 @@ def impaired_u8(x: np.ndarray, rng, snr_db: float, cfo_hz: float,
     return quantize_u8(y)
 
 
+def upconvert(baseband: np.ndarray, factor: int, offset_hz: int,
+              fs_out: float) -> np.ndarray:
+    """Frequency-domain upsample + shift (test synthesis only)."""
+    n = baseband.size
+    spec = np.fft.fft(baseband)
+    wide = np.zeros(n * factor, dtype=np.complex128)
+    half = n // 2
+    wide[:half] = spec[:half]
+    wide[-(n - half):] = spec[half:]
+    x = np.fft.ifft(wide) * factor
+    t = np.arange(x.size)
+    return (x * np.exp(2j * np.pi * offset_hz * t / fs_out)).astype(
+        np.complex64)
+
+
+def fft_resample(x: np.ndarray, n_out: int) -> np.ndarray:
+    """Exact spectral resample (test synthesis only)."""
+    spec = np.fft.fft(x)
+    out = np.zeros(n_out, dtype=np.complex128)
+    half = min(x.size, n_out) // 2
+    out[:half] = spec[:half]
+    out[-half:] = spec[-half:]
+    return (np.fft.ifft(out) * n_out / x.size).astype(np.complex64)
+
+
+def wideband_capture(muxes: dict, center_hz: float, fs: int,
+                     n_frames: int, rng):
+    """One complex64 capture at ``fs`` centred at ``center_hz`` holding
+    each ensemble of ``muxes`` ({Band III block label: Ensemble}) at its
+    block's frequency, ``n_frames`` frames each, scaled so the sum has
+    the power of one mux.  Returns (capture, {label: payloads as
+    :func:`modulate` returns them})."""
+    factor = fs // C.SAMPLE_RATE
+    wide, payloads = None, {}
+    for label, ens in muxes.items():
+        x, payloads[label] = modulate(ens, n_frames, rng)
+        y = upconvert(x, factor, int(BAND_III[label] - center_hz), fs)
+        wide = y if wide is None else wide + y
+    return (wide / np.sqrt(len(muxes))).astype(np.complex64), payloads
+
+
 def flagship_codewords(rng, device, noise: float = 0.35):
     """The flagship block's Viterbi lanes: 64 FIC codewords (768 data
     bits) and 576 EEP 3-A 128 kbit/s codewords (3072 data bits), each
@@ -86,6 +131,21 @@ def flagship_codewords(rng, device, noise: float = 0.35):
         msgs.append(m)
         jobs.append(depuncture(torch.from_numpy(tx).to(device), prof))
     return msgs, jobs
+
+
+def first_payload_cif(eti: bytes, payloads: dict) -> int:
+    """The CIF index, in ``payloads``, of the first frame of the ETI
+    stream ``eti``: where its first sub-channel's bytes occur (random
+    payloads make the match unique).  Raises AssertionError if they occur
+    nowhere."""
+    frame = next(iter(EtiParser().feed(eti)))
+    sc = next(iter(payloads))
+    data = frame.subchannel_data(sc)
+    for n, row in enumerate(payloads[sc]):
+        if row.tobytes() == data:
+            return n
+    raise AssertionError(f"subch {sc} payload of the first ETI frame is "
+                         f"none of the modulator's")
 
 
 def check_eti_payloads(eti: list[bytes], payloads: dict,

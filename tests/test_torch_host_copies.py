@@ -46,6 +46,7 @@ COPIED = [
     "mod/convcode.py", "mod/impairments.py", "mod/modulator.py",
     "fic/config.py", "fic/fig.py",
     "eti/parse.py", "eti/assemble.py", "eti/edi.py",
+    "tables/bandiii.py", "frontend/__init__.py", "frontend/rtlsdr.py",
 ]
 # The one change besides import lines: where the native library builds.
 EXCEPTIONS = {

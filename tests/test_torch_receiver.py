@@ -286,10 +286,18 @@ def test_port_checkpoint_file_roundtrip(tmp_path):
 
 
 def test_receiver_requires_device_and_rejects_tii():
+    """The device is required; TII is reported only when asked for at
+    construction, and only once a block has been decoded."""
     with pytest.raises(TypeError):
         trx.DabReceiver(n_frames=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trx.DabReceiver(n_frames=4, tii=True, device="cpu")
+    x, _ = _capture("clean")
+    rx = trx.DabReceiver(n_frames=4, device="cpu")
+    assert rx.tii() is None
+    rx = trx.DabReceiver(n_frames=4, tii=True, device="cpu")
+    assert rx.tii() is None
+    rx.feed(x[: trx.block_samples(4)])
+    assert rx._tii_floor > 0 and rx._tii_powers.shape == (24, 8)
+    assert rx.tii() is None                  # the capture carries no TII
 
 
 # -------------------------------------------------------------------- CLI
@@ -319,17 +327,24 @@ def test_cli_matches_jax_receiver(fmt, tmp_path):
                         for r in recs[1:])
 
 
-@pytest.mark.parametrize("args", [["--tii"], ["--rate", "2400000"],
-                                  ["--wideband", "200e6"],
+@pytest.mark.parametrize("args", [["--tii", "--tist", "--tist-epoch", "5"],
+                                  ["--rate", "2400000", "--device",
+                                   "rtlsdr"],
+                                  ["--wideband", "200e6", "--device",
+                                   "rtlsdr", "--frequency", "200e6"],
                                   ["--device", "rtlsdr"],
                                   ["--tist", "--tist-utc"]])
 def test_cli_rejects_unported_options(args, capsys):
+    """Every input flag is ported now; what the CLI rejects are the JAX
+    CLI's usage errors, before it opens any file."""
     from dabtools_tpu_torch.cli.dab2eti import main
     with pytest.raises(SystemExit) as exc:
         main(["--torch-device", "cpu", *args, "nonexistent.iq"])
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    assert "not ported" in err or "mutually exclusive" in err
+    assert ("requires --frequency" in err or "mutually exclusive" in err
+            or "does not drive an SDR" in err)
+    assert "not ported" not in err
 
 
 def test_cli_cuda_missing_is_an_error(capsys):
@@ -384,6 +399,9 @@ def test_port_imports_no_jax():
     assert "dabtools_tpu_torch.ops.viterbi_cuda" in res["names"]
     assert "dabtools_tpu_torch.testsignal" in res["names"]
     assert "dabtools_tpu_torch.fic.fig" in res["names"]
+    for name in ("ops.tii", "ops.fir", "ops.resample", "parallel.channel",
+                 "cli.dabscan", "frontend.rtlsdr", "tables.bandiii"):
+        assert f"dabtools_tpu_torch.{name}" in res["names"]
     assert res["added"] == []
     assert res["ran"] == []
     assert res["ref"] == []
