@@ -23,7 +23,10 @@ of which raises on failure:
    with a third of the soft bits erased to exactly 0 (ACS ties).  The
    decode must launch K3 and K4 and equal the messages; K3's decisions
    and metrics and K4's bits must equal ``acs2_plain`` /
-   ``traceback2_plain`` exactly; median times;
+   ``traceback2_plain`` exactly; then the same on adversarial batches
+   at the kernels' chunk edges (640 lanes of 33 and of 65 steps,
+   integer-valued soft bits, half of them erased: ties everywhere);
+   median times;
 3b. the one-hot traceback K2' at the flagship ragged shape: the decode
    with ``traceback="onehot64"`` must launch K2' and equal the messages,
    and K2' on K1's decisions must equal K2's bits and
@@ -323,9 +326,32 @@ def kernel_phase(rng) -> dict:
         "bits_k": bits_k, "bits_p": bits_p}
 
 
+def hold_k3k4(soft4, ws2, what: str):
+    """K3's decisions and metrics and K4's bits against their plain
+    versions on the same inputs; raises unless they are equal.  Returns
+    (K3's decisions, K4's bits, K3's max metric difference, K4's max bit
+    difference)."""
+    dec_k, metric_k = K.acs2(soft4, ws2)
+    dec_p, metric_p = V.acs2_plain(soft4, ws2)
+    bits_k = K.traceback2(dec_k)
+    bits_p = V.traceback2_plain(dec_k)
+    torch.cuda.synchronize()
+    n_dec_diff = int((dec_k != dec_p).sum())
+    acs_err = float((metric_k - metric_p).abs().max())
+    tb_err = int((bits_k.int() - bits_p.int()).abs().max())
+    print(f"{what}: K3 acs2 vs plain: {n_dec_diff} decision words differ, "
+          f"max |metric diff| {acs_err}; K4 traceback2 vs plain: max |bit "
+          f"diff| {tb_err}")
+    if n_dec_diff or acs_err or tb_err:
+        raise AssertionError(f"radix-2 kernel and plain version disagree: "
+                             f"{what}")
+    return dec_k, bits_k, acs_err, tb_err
+
+
 def radix2_phase(rng) -> dict:
     """K3/K4 at full width: the odd-length decode through
-    ``viterbi_decode``, then each kernel against its plain version."""
+    ``viterbi_decode``, then each kernel against its plain version, at
+    full width and on adversarial batches at the chunk edges."""
     msgs = rng.integers(0, 2, size=(R2_LANES, R2_INFO_BITS), dtype=np.uint8)
     tx = np.stack([1.0 - 2.0 * conv_encode(m) for m in msgs])
     soft_np = (tx + rng.normal(scale=R2_NOISE, size=tx.shape)).astype(
@@ -350,19 +376,18 @@ def radix2_phase(rng) -> dict:
 
     soft4 = soft.reshape(b, n4 // 4, 4)
     ws2 = V._ws2(soft.device)
-    dec_k, metric_k = K.acs2(soft4, ws2)
-    dec_p, metric_p = V.acs2_plain(soft4, ws2)
-    bits_k = K.traceback2(dec_k)
-    bits_p = V.traceback2_plain(dec_k)
-    torch.cuda.synchronize()
-    n_dec_diff = int((dec_k != dec_p).sum())
-    acs_err = float((metric_k - metric_p).abs().max())
-    tb_err = int((bits_k.int() - bits_p.int()).abs().max())
-    print(f"K3 acs2 vs plain: {n_dec_diff} decision words differ, "
-          f"max |metric diff| {acs_err}")
-    print(f"K4 traceback2 vs plain: max |bit diff| {tb_err}")
-    if n_dec_diff or acs_err or tb_err:
-        raise AssertionError("radix-2 kernel and plain version disagree")
+    dec_k, bits_k, acs_err, tb_err = hold_k3k4(
+        soft4, ws2, f"full width, {b} lanes x {n4 // 4} steps")
+    # Its own generator: the later phases' signals do not depend on it.
+    adv = np.random.default_rng(SEED + 1)
+    for t in (K.CHUNK + 1, 2 * K.CHUNK + 1):
+        s = adv.integers(-2, 3, size=(R2_LANES, t, 4)).astype(np.float32)
+        s[adv.random(s.shape) < 0.5] = 0.0
+        _, _, a_err, t_err = hold_k3k4(
+            torch.from_numpy(s).cuda(), ws2,
+            f"adversarial radix-2 batch, {R2_LANES} lanes x {t} steps, "
+            f"integer soft bits, half erased")
+        acs_err, tb_err = max(acs_err, a_err), max(tb_err, t_err)
 
     acs_ms = time_ms(lambda: K.acs2(soft4, ws2), 10, KERNEL_RUN)
     acs_plain_ms = time_ms(lambda: V.acs2_plain(soft4, ws2), 3)

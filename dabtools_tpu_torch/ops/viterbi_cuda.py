@@ -43,8 +43,9 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-CHUNK = 32              # K1/K2's double steps per staged chunk: kChunk
-                        # of csrc/viterbi4.cu, for the tests' chunk edges
+CHUNK = 32              # (double) steps per staged chunk: kChunk of
+                        # csrc/viterbi4.cu (K1/K2) and csrc/viterbi2.cu
+                        # (K3/K4), for the tests' chunk edges
 
 acs4_launches = 0
 traceback4_launches = 0

@@ -82,11 +82,15 @@ def test_kernels_match_plain(cuda, shape, erased):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(3, 769), (5, 3073), (1, 1)])
+@pytest.mark.parametrize("shape", [(3, 769), (5, 3073), (1, 1), (7, 27),
+                                   (4, 59), (640, 91)])
 def test_radix2_kernels_match_plain(cuda, shape):
     """K3/K4 at odd trellis lengths, with a third of the soft bits erased
     to exactly 0 (ACS ties): decisions, metrics and bits equal the plain
-    versions exactly, and ``viterbi_decode`` runs them once each."""
+    versions exactly, and ``viterbi_decode`` runs them once each.  T = 7,
+    33, 65 and 97 (n + 6) are a partial first chunk and one step past
+    one, two and three chunks; 7 and 5 lanes leave a two-lane block half
+    empty."""
     from dabtools_tpu_torch.ops import viterbi_cuda as K
     batch, n = shape
     rng = np.random.default_rng(batch * 7 + n)

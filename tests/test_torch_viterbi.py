@@ -442,6 +442,156 @@ def test_warp_schedule_matches_plain(t2_max, kind):
                                V.traceback4_plain(dec_p), rtol=0, atol=0)
 
 
+# K3/K4's warp schedule (csrc/viterbi2.cu), emulated the same way.  Thread
+# j holds x and y: states j and 32 + j, swapped if j is odd.
+_EVEN_BITS = 0x55555555
+
+
+def _warp_signs2(ws2):
+    """Thread j's signs: row j of WS, negated iff (j >> 4) ^ (j & 1)."""
+    flip = ((_THREADS >> 4) ^ (_THREADS & 1)).bool()
+    return torch.where(flip[:, None], -ws2[_THREADS], ws2[_THREADS])
+
+
+def _warp_sums2(s, w):
+    """(lanes, 4) soft bits of one step -> (lanes, 32): thread j's signed
+    sum with its signs ``w[j]``, left to right."""
+    acc = w[None, :, 0] * s[:, None, 0]
+    for k in range(1, 4):
+        acc = acc + w[None, :, k] * s[:, None, k]
+    return acc
+
+
+def _warp_acs2(soft4, ws2):
+    """K3's schedule: soft bits staged a chunk at a time (thread i holds
+    step base + i); a step reads x from thread 2(j & 15) + (j >> 4) and y
+    from thread 2(j & 15) + 1 - (j >> 4), forms x' = max(r1 + B, r2 - B)
+    and y' = max(r1 - B, r2 + B), and ballots whether each differs from
+    its even predecessor's candidate; thread i interleaves step base + i's
+    two ballots into its decision words when it stores them."""
+    b, t_max, _ = soft4.shape
+    w = _warp_signs2(ws2)
+    hi = (_THREADS >> 4).bool()
+    src1 = 2 * (_THREADS & 15) + (_THREADS >> 4)
+    src2 = 2 * (_THREADS & 15) + 1 - (_THREADS >> 4)
+    x = torch.full((b, 32), V.NEG_INF, dtype=torch.float32)
+    x[:, 0] = 0.0
+    y = torch.full((b, 32), V.NEG_INF, dtype=torch.float32)
+    dec = torch.full((b, t_max, 2), -7, dtype=torch.int64)
+    # Shared memory keeps what the last chunk left: start it as garbage.
+    staged = torch.full((b, CHUNK, 4), float("nan"))
+    dec_s = torch.full((b, CHUNK, 2), 0x5A5A5A5A, dtype=torch.int64)
+    for base in range(0, t_max, CHUNK):
+        g = base + _THREADS
+        staged = torch.where((g < t_max)[None, :, None],
+                             soft4[:, g.clamp(max=t_max - 1)], staged)
+        sums = [_warp_sums2(staged[:, i], w)
+                for i in range(min(CHUNK, t_max - base))]
+        for i, bq in enumerate(sums):
+            r1, r2 = x[:, src1], y[:, src2]
+            x0, x1, y0, y1 = r1 + bq, r2 - bq, r1 - bq, r2 + bq
+            x, y = torch.maximum(x0, x1), torch.maximum(y0, y1)
+            # the survivor is not the even predecessor's candidate
+            dx = x != torch.where(hi, x1, x0)
+            dy = y != torch.where(hi, y1, y0)
+            dec_s[:, i] = torch.stack([_ballot(dx), _ballot(dy)], -1)
+        keep = g < t_max                  # thread i stores step base + i
+        wx, wy = dec_s[:, keep, 0], dec_s[:, keep, 1]
+        dec[:, g[keep]] = torch.stack(
+            [(wx & _EVEN_BITS) | (wy & ~_EVEN_BITS),
+             (wy & _EVEN_BITS) | (wx & ~_EVEN_BITS)], -1)
+    wrapped = torch.where(dec >= 2 ** 31, dec - 2 ** 32, dec)
+    return wrapped.to(torch.int32), x[:, 0].clone()
+
+
+def _warp_traceback2(dec):
+    """K4's schedule: chunks walked from the top, thread i holds step base
+    + i's word pair; h carries the state in its low 6 bits and every
+    decision shifted in above them (a 32-bit register), so after a chunk
+    step base + i's bit, bit 5 of its state, is the decision of step base
+    + i + 6: bit i + 6 of h or of the chunk above's h."""
+    b, t_max, _ = dec.shape
+    words = dec.to(torch.int64) & 0xFFFFFFFF
+    out = torch.full((b, t_max), -1, dtype=torch.int64)
+    h = torch.zeros(b, dtype=torch.int64)
+    above = torch.zeros(b, dtype=torch.int64)
+    top = (t_max - 1) // CHUNK * CHUNK
+    k = _THREADS + 6
+    for base in range(top, -1, -CHUNK):
+        g = base + _THREADS
+        staged = words[:, g.clamp(max=t_max - 1)] * (g < t_max)[None, :,
+                                                                None]
+        n = min(CHUNK, t_max - base)
+        word = torch.where((h & 32) != 0, staged[:, n - 1, 1],
+                           staged[:, n - 1, 0])
+        for i in range(n - 1, -1, -1):
+            nxt = torch.where((h & 16) != 0, staged[:, i - 1, 1],
+                              staged[:, i - 1, 0]) if i > 0 else None
+            h = ((h << 1) | ((word >> (h & 31)) & 1)) & 0xFFFFFFFF
+            word = nxt
+        bits = torch.where(k < CHUNK, h[:, None] >> k.clamp(max=CHUNK - 1),
+                           above[:, None] >> (k - CHUNK).clamp(min=0)) & 1
+        out[:, base:base + n] = bits[:, :n]
+        above = h
+    return out.to(torch.uint8)
+
+
+def test_warp_radix2_branch_metric_signs():
+    """All four DAB polynomials tap the newest and the oldest register
+    bit, so WS's 128 rows are rows 0..31 up to sign; one signed sum A per
+    thread then gives all of a step's branch metrics: A, -A, -A, A for
+    rows j, 32 + j, 64 + j, 96 + j, equal to ``_signed_sums``' table on
+    erasure-heavy input (zeros compare equal whatever their sign: adding
+    either to a path metric, never -0, gives the same candidate).  The
+    kernel's own sum B, with row j's signs negated where j >> 4 differs
+    from j's parity, is A or -A."""
+    ws = torch.from_numpy(V.acs_matmul_matrices()[1])
+    torch.testing.assert_close(ws[32:64], -ws[:32], rtol=0, atol=0)
+    torch.testing.assert_close(ws[64:96], -ws[:32], rtol=0, atol=0)
+    torch.testing.assert_close(ws[96:128], ws[:32], rtol=0, atol=0)
+    rng = np.random.default_rng(32)
+    soft = rng.integers(-2, 3, size=(40, 4)).astype(np.float32)
+    soft[rng.random(soft.shape) < 0.5] = 0.0
+    soft[:20] += rng.normal(size=(20, 4)).astype(np.float32)
+    s = torch.from_numpy(soft)
+    a = _warp_sums2(s, ws[:32])                              # (lanes, 32)
+    got = torch.cat([a, -a, -a, a], dim=1).T                 # (128, lanes)
+    want = V._signed_sums(s.T[None].contiguous()).index_select(
+        1, V._sign_rows(ws))[0]
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    flip = ((_THREADS >> 4) ^ (_THREADS & 1)).bool()
+    torch.testing.assert_close(_warp_sums2(s, _warp_signs2(ws)),
+                               torch.where(flip, -a, a), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["noisy", "ties"])
+@pytest.mark.parametrize("t_max", [7, CHUNK - 1, CHUNK + 1, 2 * CHUNK - 1,
+                                   2 * CHUNK + 1, 3 * CHUNK + 1])
+def test_warp_radix2_schedule_matches_plain(t_max, kind):
+    """K3's and K4's warp schedules, emulated, against ``acs2_plain`` and
+    ``traceback2_plain`` at odd T at and around the chunk edges (a partial
+    last chunk, one step past a chunk), noisy or integer-valued with half
+    the soft bits erased (ACS ties).  Decisions, metrics and bits must be
+    equal."""
+    rng = np.random.default_rng(1000 * t_max + len(kind))
+    lanes = 5
+    if kind == "noisy":
+        soft = 1.0 - 2.0 * rng.integers(0, 2, size=(lanes, t_max, 4))
+        soft = soft + rng.normal(scale=0.8, size=soft.shape)
+        soft[rng.random(soft.shape) < 1 / 3] = 0.0
+    else:
+        soft = rng.integers(-2, 3, size=(lanes, t_max, 4)).astype(float)
+        soft[rng.random(soft.shape) < 0.5] = 0.0
+    soft4 = torch.from_numpy(soft.astype(np.float32))
+    ws2 = V._ws2(torch.device("cpu"))
+    dec, metric = _warp_acs2(soft4, ws2)
+    dec_p, metric_p = V.acs2_plain(soft4, ws2)
+    torch.testing.assert_close(dec, dec_p, rtol=0, atol=0)
+    torch.testing.assert_close(metric, metric_p, rtol=0, atol=0)
+    torch.testing.assert_close(_warp_traceback2(dec_p),
+                               V.traceback2_plain(dec_p), rtol=0, atol=0)
+
+
 def test_uep_candidate_metrics_match_jax():
     """The autoprobe's batched candidate decode (ops/uep_probe.py)."""
     cands = enumerate_uep_candidates(192, 2)[:3]

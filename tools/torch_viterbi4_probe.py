@@ -5,10 +5,12 @@ CUDA card, and how they compare with another version of their sources.
     python3 tools/torch_viterbi4_probe.py [--against CSRC_DIR] [--sass FILE]
 
 1. Times K1 ``acs4`` and K2 ``traceback4`` on batches of full-length lanes
-   (1539 double steps, the flagship's MSC codewords) of growing lane
-   count.  One lane alone shows what one codeword's chain of steps takes;
-   one lane per SM and one per warp scheduler (4 per SM) add no contention
-   for issue slots; beyond 528 lanes some schedulers hold two.
+   (1539 double steps, the flagship's MSC codewords), and K3 ``acs2`` and
+   K4 ``traceback2`` on lanes of 3079 steps (``chip_smoke.py``'s odd
+   length), of growing lane count.  One lane alone shows what one
+   codeword's chain of steps takes; one lane per SM and one per warp
+   scheduler (4 per SM) add no contention for issue slots; beyond 528
+   lanes some schedulers hold two.
 2. With ``--against``, builds the kernels of another checkout's
    ``dabtools_tpu_torch/csrc`` (for example the parent commit's, unpacked
    with ``git archive``) and times all five kernels of both builds at the
@@ -16,8 +18,10 @@ CUDA card, and how they compare with another version of their sources.
    K2 and K2' on 640 ragged lanes (64 x 387 + 576 x 1539 double steps),
    K3 and K4 on 640 lanes of 3079 steps.  The two builds' outputs must be
    equal.
-3. Prints each kernel's SASS instruction count (``cuobjdump``); ``--sass``
-   writes the whole listing of this build to FILE.
+3. Prints each kernel's SASS instruction count (``cuobjdump``) and its
+   longest run without a branch (in K1-K4 the unrolled walk of a full
+   chunk, 32 (double) steps); ``--sass`` writes the whole listing of this
+   build to FILE.
 
 Every time is the median over 10 pairs of CUDA events, each pair around
 20 launches back to back, divided by 20.  Prints the card's name and
@@ -74,27 +78,40 @@ def _sass(lib: pathlib.Path) -> str:
 
 
 def _instruction_counts(sass: str) -> dict:
+    """Per kernel: (its instructions, its longest run of instructions
+    without a branch or an exit)."""
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            counts[name] = 0
+            counts[name] = [0, 0, 0]        # total, longest run, this run
         elif name and line.strip().startswith("/*") and ";" in line:
-            counts[name] += 1
-    return counts
+            c = counts[name]
+            c[0] += 1
+            c[2] = 0 if ("BRA" in line or "EXIT" in line) else c[2] + 1
+            c[1] = max(c[1], c[2])
+    return {k: (v[0], v[1]) for k, v in counts.items()}
 
 
-def lane_scaling(rng, ws4) -> None:
+def lane_scaling(rng, ws4, ws2) -> None:
     for lanes in LANES:
         soft = rng.normal(size=(lanes, T2, 8)).astype(np.float32)
         soft8 = torch.from_numpy(soft).cuda()
         t2 = torch.full((lanes,), T2, dtype=torch.int32, device="cuda")
-        dec, _ = K.acs4(soft8, t2, ws4)
-        acs = time_ms(lambda: K.acs4(soft8, t2, ws4), REPS, KERNEL_RUN)
-        tb = time_ms(lambda: K.traceback4(dec), REPS, KERNEL_RUN)
-        print(f"lanes {lanes:5d}: K1 {acs:.4f} ms = "
-              f"{acs * 1e3 / T2:.4f} us/step; K2 {tb:.4f} ms = "
-              f"{tb * 1e3 / T2:.4f} us/step")
+        soft = rng.normal(size=(lanes, T_RADIX2, 4)).astype(np.float32)
+        soft4 = torch.from_numpy(soft).cuda()
+        dec4, _ = K.acs4(soft8, t2, ws4)
+        dec2, _ = K.acs2(soft4, ws2)
+        line = []
+        for name, fn, steps in (
+                ("K1", lambda: K.acs4(soft8, t2, ws4), T2),
+                ("K2", lambda: K.traceback4(dec4), T2),
+                ("K3", lambda: K.acs2(soft4, ws2), T_RADIX2),
+                ("K4", lambda: K.traceback2(dec2), T_RADIX2)):
+            ms = time_ms(fn, REPS, KERNEL_RUN)
+            line.append(f"{name} {ms:.4f} ms = {ms * 1e3 / steps:.4f} "
+                        f"us/step")
+        print(f"lanes {lanes:5d}: " + "; ".join(line))
 
 
 def against(rng, ws4, other: ctypes.CDLL) -> None:
@@ -154,13 +171,14 @@ def main() -> int:
     K.build()
     rng = np.random.default_rng(7)
     ws4 = V._ws4(torch.device("cuda"))
-    lane_scaling(rng, ws4)
+    lane_scaling(rng, ws4, V._ws2(torch.device("cuda")))
     if args.against:
         against(rng, ws4, _load_other(args.against))
     print(f"SM clock after the runs: {_smi('clocks.sm,clocks.max.sm')}")
     sass = _sass(K.library_path())
-    for name, n in _instruction_counts(sass).items():
-        print(f"SASS {name}: {n} instructions")
+    for name, (n, run) in _instruction_counts(sass).items():
+        print(f"SASS {name}: {n} instructions; longest run without a "
+              f"branch {run}")
     if args.sass:
         args.sass.parent.mkdir(parents=True, exist_ok=True)
         args.sass.write_text(sass)
