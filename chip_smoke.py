@@ -27,10 +27,12 @@ of which raises on failure:
    at the kernels' chunk edges (640 lanes of 33 and of 65 steps,
    integer-valued soft bits, half of them erased: ties everywhere);
    median times;
-3b. the one-hot traceback K2' at the flagship ragged shape: the decode
-   with ``traceback="onehot64"`` must launch K2' and equal the messages,
-   and K2' on K1's decisions must equal K2's bits and
-   ``traceback4_plain``'s; median time;
+3b. the one-hot traceback K2': the decode with ``traceback="onehot64"``
+   at the flagship ragged shape must launch K1 and K2' and equal the
+   messages; K2' on K1's decisions of phase 3's two batches (the flagship
+   shape and the adversarial chunk-edge batch) must equal K2's bits,
+   ``traceback4_plain``'s and ``traceback4_onehot64_plain``'s; median
+   times of K2' and its plain version, beside K2's;
 4. end to end: the flagship mux (9 x 128 kbit/s EEP 3-A, 864/864 CUs,
    Mode I) modulated for 100 frames, with AWGN, CFO and a timing offset,
    quantized to u8 and fed to ``DabReceiver(n_frames=16, device="cuda")``.
@@ -265,12 +267,12 @@ def hold_k1k2(soft8, t2, ws4, what: str):
     return dec_k, bits_k, bits_p, acs_err, tb_err
 
 
-def adversarial_check(rng, ws4: torch.Tensor, t2_max: int) -> None:
+def adversarial_check(rng, ws4: torch.Tensor, t2_max: int):
     """K1/K2 against their plain versions on 640 lanes of ``t2_max``
     double steps whose lengths probe the kernels' chunk edges (0, 1, a
     chunk and either side of it, 2 chunks + 3, the whole width, random),
     with the radix-2 phase's noise and a third of the soft bits erased to
-    exactly 0 (ACS ties)."""
+    exactly 0 (ACS ties).  Returns :func:`hold_k1k2`'s result."""
     soft_np = (1.0 - 2.0 * rng.integers(0, 2, size=(R2_LANES, t2_max, 8))
                + rng.normal(scale=R2_NOISE, size=(R2_LANES, t2_max, 8)))
     soft_np[rng.random(soft_np.shape) < R2_ERASED] = 0.0
@@ -278,10 +280,11 @@ def adversarial_check(rng, ws4: torch.Tensor, t2_max: int) -> None:
                       2 * K.CHUNK + 3, t2_max - 1, t2_max])
     t2_np = rng.integers(0, t2_max + 1, size=R2_LANES)
     t2_np[: 8 * len(edges)] = np.tile(edges, 8)
-    hold_k1k2(torch.from_numpy(soft_np.astype(np.float32)).cuda(),
-              torch.from_numpy(t2_np.astype(np.int32)).cuda(), ws4,
-              f"adversarial ragged batch, {R2_LANES} lanes x {t2_max} double "
-              f"steps, lengths {edges.tolist()} and random")
+    return hold_k1k2(
+        torch.from_numpy(soft_np.astype(np.float32)).cuda(),
+        torch.from_numpy(t2_np.astype(np.int32)).cuda(), ws4,
+        f"adversarial ragged batch, {R2_LANES} lanes x {t2_max} double "
+        f"steps, lengths {edges.tolist()} and random")
 
 
 def kernel_phase(rng) -> dict:
@@ -306,7 +309,7 @@ def kernel_phase(rng) -> dict:
         if wrong:
             raise AssertionError(f"{name} decode differs from the messages")
 
-    adversarial_check(rng, ws4, n4 // 8)
+    adv = adversarial_check(rng, ws4, n4 // 8)
 
     acs_ms = time_ms(lambda: K.acs4(soft8, t2, ws4), 10, KERNEL_RUN)
     acs_plain_ms = time_ms(lambda: V.acs4_plain(soft8, t2, ws4), 3)
@@ -322,8 +325,9 @@ def kernel_phase(rng) -> dict:
                      "plain_ms": acs_plain_ms, "bound": acs_bound},
             "traceback4": {"max_abs_err": float(tb_err), "ms": tb_ms,
                            "plain_ms": tb_plain_ms, "bound": tb_bound}},
-        "msgs": msgs, "soft": soft, "lengths": lengths, "dec": dec_k,
-        "bits_k": bits_k, "bits_p": bits_p}
+        "msgs": msgs, "soft": soft, "lengths": lengths,
+        "batches": {"flagship ragged shape": (dec_k, bits_k, bits_p),
+                    "adversarial chunk-edge batch": adv[:3]}}
 
 
 def hold_k3k4(soft4, ws2, what: str):
@@ -408,17 +412,19 @@ def radix2_phase(rng) -> dict:
 
 
 def onehot_phase(kern: dict) -> dict:
-    """K2' at the flagship ragged shape: the decode with
-    ``traceback="onehot64"``, then K2' on K1's decisions against K2 and
-    the plain traceback."""
+    """K2': the decode with ``traceback="onehot64"`` at the flagship ragged
+    shape, then K2' on K1's decisions of phase 3's batches against K2 and
+    both plain tracebacks."""
     _reset_counts()
     bits, _ = V.viterbi_decode4(kern["soft"], kern["lengths"],
                                 traceback="onehot64")  # the entry point
     torch.cuda.synchronize()
     launches = _counts()
     print(f"one-hot decode launches: {launches}")
-    if not (launches["acs4"] and launches["traceback4_onehot64"]):
-        raise AssertionError("the onehot64 decode did not run K1/K2'")
+    if (launches["acs4"], launches["traceback4_onehot64"],
+            launches["traceback4"]) != (1, 1, 0):
+        raise AssertionError("the onehot64 decode is not one K1 and one K2' "
+                             "launch")
     bits = bits.cpu().numpy()
     o = 0
     for m, name in zip(kern["msgs"], ("FIC", "MSC")):
@@ -428,23 +434,32 @@ def onehot_phase(kern: dict) -> dict:
             raise AssertionError(f"onehot64 {name} decode differs")
         o += m.shape[0]
 
-    dec = kern["dec"]
-    bits_o = K.traceback4_onehot64(dec)
-    torch.cuda.synchronize()
-    err_k2 = int((bits_o.int() - kern["bits_k"].int()).abs().max())
-    err_p = int((bits_o.int() - kern["bits_p"].int()).abs().max())
-    print(f"K2' traceback4_onehot64: max |bit diff| {err_k2} vs K2, "
-          f"{err_p} vs traceback4_plain")
-    if err_k2 or err_p:
-        raise AssertionError("K2' disagrees with K2 or the plain version")
+    err = 0
+    for what, (dec, bits_k, bits_p) in kern["batches"].items():
+        bits_o = K.traceback4_onehot64(dec)
+        bits_op = V.traceback4_onehot64_plain(dec)
+        torch.cuda.synchronize()
+        errs = [int((bits_o.int() - b.int()).abs().max())
+                for b in (bits_k, bits_p, bits_op)]
+        print(f"{what}: K2' traceback4_onehot64 max |bit diff| {errs[0]} vs "
+              f"K2, {errs[1]} vs traceback4_plain, {errs[2]} vs "
+              f"traceback4_onehot64_plain")
+        if any(errs):
+            raise AssertionError(f"K2' disagrees with K2 or a plain "
+                                 f"version: {what}")
+        err = max(err, *errs)
+    dec = kern["batches"]["flagship ragged shape"][0]
     ms = time_ms(lambda: K.traceback4_onehot64(dec), 10, KERNEL_RUN)
+    plain_ms = time_ms(lambda: V.traceback4_onehot64_plain(dec), 3)
     k2 = kern["records"]["traceback4"]
-    print(f"K2' traceback4_onehot64: {ms:.4f} ms, "
-          f"{_us_per_step(ms, dec.shape[1])} (K2 {k2['ms']:.4f} ms)")
-    # K2' computes K2's function: the same plain version, time and bound.
+    steps = dec.shape[1]
+    print(f"K2' traceback4_onehot64: {ms:.4f} ms, {_us_per_step(ms, steps)} "
+          f"(plain {plain_ms:.2f} ms); K2 traceback4: {k2['ms']:.4f} ms, "
+          f"{_us_per_step(k2['ms'], steps)}")
+    # K2' computes K2's function: the same bytes, so the same bound.
     return {"launches": launches, "records": {"traceback4_onehot64": {
-        "max_abs_err": float(max(err_k2, err_p)), "ms": ms,
-        "plain_ms": k2["plain_ms"], "bound": k2["bound"]}}}
+        "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+        "bound": k2["bound"]}}}
 
 
 def end_to_end_phase(rng) -> dict:

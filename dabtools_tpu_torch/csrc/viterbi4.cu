@@ -7,8 +7,9 @@
 // (the same launch with traceback="onehot64").  Only the TPU kernel's
 // default ACS semantics are built (select=shuffle, pack=shift4, bm=f32);
 // the plain PyTorch versions that compute the same values are
-// dabtools_tpu_torch/ops/viterbi.py::acs4_plain and ::traceback4_plain
-// (for K2 and K2' alike: the two compute one function).
+// dabtools_tpu_torch/ops/viterbi.py::acs4_plain, ::traceback4_plain and
+// ::traceback4_onehot64_plain (K2' computes K2's function with its own
+// arithmetic).
 //
 // What bounds them on the card.  Both are sequential recursions over the
 // double steps of a codeword (1539 at the flagship's 3078-step MSC
@@ -71,11 +72,27 @@
 // store (2 B per thread).  T2 need not be a multiple of kChunk.  Two lanes
 // per block, as K1 (31 registers, 1 KB of shared memory a block).
 //
-// K2' keeps the one-hot64 kernel's idea: the survivor state is a 64-wide
-// one-hot spread over one warp per lane, two states per thread (j and
-// 32 + j); warp votes read the active state's input bits and 2-bit
-// decision where the TPU kernel multiplied and reduced over sublanes, and
-// two shuffles move the one-hot to the predecessor.
+// K2' keeps the one-hot64 kernel's idea, the survivor carried as a
+// 64-state one-hot and never as a state index, in K2's layout: one warp
+// per codeword, decision words staged per chunk and read as broadcasts a
+// step ahead, thread i keeping the chunk's step i's two bits.  The one-hot
+// is a 64-bit mask in registers, lo for states 0-31 and hi for 32-63, the
+// same in every thread, so a step needs no vote and no shuffle.  The
+// survivor's decision is the TPU kernel's sum(oh * dec) as a masked AND
+// (the word of plane k holds state 32w + j's bit at bit j), and its output
+// bits are whether the mask lies in its words' upper halves (bit 4) and in
+// hi (bit 5).  The predecessor 4a + d (a = t & 15) comes by integer
+// squaring, exact because the mask is a power of two: any = lo | hi has
+// bit p = t & 31, any^2 (a 32x32->64 product) bit 2p, so its two words
+// OR'd hold bit 2a, the fold over bits 4 and 5 of the state, and that
+// squared has bit 4a of 64.  Both halves then shift left by d.  A step's
+// two chains, the decision (two ANDs, a min, a multiply-add, the shift)
+// and the squares (or, wide multiply, or, wide multiply, the shift), are
+// five operations each; a fold (shift, or, mask) and a spread by three
+// shift/or/and stages per half would make the second ten deep.
+// "v != 0" is written as min(v, 1) in PTX, since the compiler's own
+// compare and select cost a step two instructions more; the 32-step walk
+// is 655 SASS instructions (tools/torch_viterbi4_probe.py).
 //
 // Semantics that must match the plain version bit for bit:
 //   * branch metric bm[p*64+t] = (sum_{k<4} w_k s_k) + (sum_{k>=4} w_k s_k)
@@ -97,7 +114,7 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kAll = 0xffffffffu;
 constexpr int kChunk = 32;         // double steps per staged chunk
-constexpr int kLanesPerBlock = 2;  // K1/K2: one warp per lane
+constexpr int kLanesPerBlock = 2;  // K1/K2/K2': one warp per lane
 
 // The 4-way select of one target: returns the survivor's metric and sets
 // the decision's two bits.  fmaxf gives the strict-'>' select's value,
@@ -286,42 +303,76 @@ traceback4_kernel(const uint32_t* __restrict__ dec,
   }
 }
 
-__global__ void __launch_bounds__(128)
+// min(v, 1): 1 if the one-hot meets v, else 0.  As min.u32 it stays one
+// instruction; written as v != 0, the compiler makes a compare and a
+// select of it.
+__device__ __forceinline__ uint32_t umin1(uint32_t v) {
+  uint32_t r;
+  asm("min.u32 %0, %1, 1;" : "=r"(r) : "r"(v));
+  return r;
+}
+
+// Walk the staged chunk's steps n-1 .. 0 (kChunk-1 .. 0 if kFull) from the
+// one-hot (lo, hi); bit i of u1 / u2 takes step i's bit 2g / 2g + 1.
+template <bool kFull>
+__device__ __forceinline__ void onehot64_walk(const uint4* words, int n,
+                                              uint32_t& lo, uint32_t& hi,
+                                              uint32_t& u1, uint32_t& u2) {
+  uint4 next = words[kFull ? kChunk - 1 : n - 1];
+#pragma unroll
+  for (int i = kChunk - 1; i >= 0; --i) {
+    if (!kFull && i >= n) continue;
+    const uint4 w = next;
+    if (i > 0) next = words[i - 1];  // broadcast load, a step ahead
+    // any has bit p = t & 31 alone, so any^2 has bit 2p of 64: bit 2a
+    // (a = t & 15) of its low word if p < 16, of its high word if not.
+    const uint32_t any = lo | hi;
+    const uint64_t sq = (uint64_t)any * any;
+    const uint32_t sq_hi = (uint32_t)(sq >> 32);
+    // Bit i of u1 / u2: bits 4 and 5 of the state (added: bit i is clear).
+    u1 += umin1(sq_hi) << i;
+    u2 += umin1(hi) << i;
+    // The survivor's decision: its bit in each plane's word.
+    const uint32_t d0 = umin1((lo & w.x) | (hi & w.z));
+    const uint32_t d1 = umin1((lo & w.y) | (hi & w.w));
+    const uint32_t d = d0 + (d1 << 1);
+    // The predecessor 4a + d: x (bit 2a) squared has bit 4a of 64 alone.
+    const uint32_t x = (uint32_t)sq | sq_hi;
+    const uint64_t x2 = (uint64_t)x * x;
+    lo = (uint32_t)x2 << d;  // no bit crosses a half: 4(a & 7) + d < 32
+    hi = (uint32_t)(x2 >> 32) << d;
+  }
+}
+
+__global__ void __launch_bounds__(32 * kLanesPerBlock)
 traceback4_onehot64_kernel(const uint32_t* __restrict__ dec,
                            uint8_t* __restrict__ bits, int B, int T2) {
-  constexpr unsigned kAll = 0xffffffffu;
-  const int lane = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  __shared__ uint4 dec_s[kLanesPerBlock][kChunk];
+  const int warp = threadIdx.x >> 5;
   const int j = threadIdx.x & 31;
-  if (lane >= B) return;  // warp-uniform: every lane is one whole warp
+  const int lane = blockIdx.x * kLanesPerBlock + warp;
+  if (lane >= B || T2 <= 0) return;  // warp-uniform
   const uint4* dl =
       reinterpret_cast<const uint4*>(dec + (size_t)lane * T2 * 4);
-  uint8_t* bl = bits + (size_t)lane * 2 * T2;
-  // One-hot carry: lo = state j is the survivor, hi = state 32 + j is.
-  int lo = (j == 0), hi = 0;
-  for (int g = T2 - 1; g >= 0; --g) {
-    const uint4 w = dl[g];  // one address for the whole warp: a broadcast
-    const uint32_t d_lo = ((w.x >> j) & 1u) | (((w.y >> j) & 1u) << 1);
-    const uint32_t d_hi = ((w.z >> j) & 1u) | (((w.w >> j) & 1u) << 1);
-    const uint32_t d_own = lo ? d_lo : (hi ? d_hi : 0u);
-    // Votes over the one-hot: bit 5 of the state, bit 4, the decision.
-    const int u2 = __any_sync(kAll, hi);
-    const int u1 = __any_sync(kAll, (lo | hi) && (j & 16));
-    const int d =
-        __any_sync(kAll, d_own & 1u) | (__any_sync(kAll, d_own & 2u) << 1);
-    if (j == 0) {
-      bl[2 * g] = (uint8_t)u1;
-      bl[2 * g + 1] = (uint8_t)u2;
-    }
-    // Fold away u1, u2: thread k then holds the one-hot of a = k & 15.
-    int f = lo | hi;
-    f |= __shfl_xor_sync(kAll, f, 16);
-    // Predecessor 4a + d: state j has a = j >> 2, state 32 + j has
-    // a = 8 + (j >> 2); both have p = j & 3.
-    const int take = (j & 3) == d;
-    const int a_lo = __shfl_sync(kAll, f, j >> 2);
-    const int a_hi = __shfl_sync(kAll, f, 8 + (j >> 2));
-    lo = take & a_lo;
-    hi = take & a_hi;
+  uint16_t* bl = reinterpret_cast<uint16_t*>(bits + (size_t)lane * 2 * T2);
+
+  const int top = ((T2 - 1) / kChunk) * kChunk;  // the highest chunk
+  uint4 next = make_uint4(0u, 0u, 0u, 0u);
+  if (top + j < T2) next = dl[top + j];
+  uint32_t lo = 1u, hi = 0u;  // the one-hot of state 0
+  for (int base = top; base >= 0; base -= kChunk) {
+    __syncwarp();
+    dec_s[warp][j] = next;
+    __syncwarp();
+    if (base > 0) next = dl[base - kChunk + j];  // the chunk below, in flight
+    const int n = min(kChunk, T2 - base);
+    uint32_t u1 = 0u, u2 = 0u;
+    if (n == kChunk)
+      onehot64_walk<true>(dec_s[warp], n, lo, hi, u1, u2);
+    else
+      onehot64_walk<false>(dec_s[warp], n, lo, hi, u1, u2);
+    if (j < n) bl[base + j] = (uint16_t)(((u1 >> j) & 1u) |
+                                         (((u2 >> j) & 1u) << 8));
   }
 }
 
@@ -353,10 +404,9 @@ extern "C" int dab_traceback4(const uint32_t* dec, uint8_t* bits, int B,
 
 extern "C" int dab_traceback4_onehot64(const uint32_t* dec, uint8_t* bits,
                                        int B, int T2, void* stream) {
-  const int lanes_per_block = 4;  // one warp per lane
   if (B > 0)
-    traceback4_onehot64_kernel<<<(B + lanes_per_block - 1) / lanes_per_block,
-                                 32 * lanes_per_block, 0,
+    traceback4_onehot64_kernel<<<(B + kLanesPerBlock - 1) / kLanesPerBlock,
+                                 32 * kLanesPerBlock, 0,
                                  (cudaStream_t)stream>>>(dec, bits, B, T2);
   return (int)cudaGetLastError();
 }

@@ -14,7 +14,8 @@ Dispatch is by the tensor's device:
   (K1 ``acs4``, K2 ``traceback4`` or K2' ``traceback4_onehot64``; K3
   ``acs2``, K4 ``traceback2``) or the call raises;
 * a CPU tensor goes to the plain PyTorch versions here (``acs4_plain``,
-  ``traceback4_plain``, ``acs2_plain``, ``traceback2_plain``), which
+  ``traceback4_plain``, ``traceback4_onehot64_plain``, ``acs2_plain``,
+  ``traceback2_plain``), which
   compute exactly what the kernels compute: the same branch-metric
   summation order, the same strict ``>`` select (ties take the lower
   predecessor), the same packed decision words.
@@ -228,6 +229,39 @@ def traceback4_plain(dec: torch.Tensor) -> torch.Tensor:
     return bits.reshape(b, 2 * t2_max).to(torch.uint8)
 
 
+def traceback4_onehot64_plain(dec: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K2' (``viterbi_cuda.traceback4_onehot64``):
+    :func:`traceback4_plain`'s function, with the kernel's arithmetic.
+
+    Each lane's survivor is a 64-state one-hot, never a state index: ``lo``
+    and ``hi`` (int64 holding 32-bit masks) have bit ``t`` and ``t - 32``.
+    ``any = lo | hi`` has bit ``p = t & 31``; its square, bit ``2p`` of
+    64, has its high word nonzero iff bit 4 of ``t`` is set, and its two
+    words OR'd hold bit ``2a`` (``a = t & 15``), whose square has bit
+    ``4a``.  A step emits bits 4 and 5 of ``t``, takes the decision as a
+    masked AND of the one-hot with each plane's words and moves to ``4a +
+    d`` by shifting both words of that square by ``d``.
+    """
+    b, t2_max, _ = dec.shape
+    words = dec.to(torch.int64) & 0xFFFFFFFF
+    lo = torch.ones(b, dtype=torch.int64, device=dec.device)
+    hi = torch.zeros_like(lo)
+    bits = torch.empty((b, t2_max, 2), dtype=torch.uint8, device=dec.device)
+    for g in range(t2_max - 1, -1, -1):
+        w = words[:, g]
+        sq = (lo | hi) ** 2                    # bit 2p < 63: no overflow
+        sq_hi = sq >> 32
+        bits[:, g, 0] = sq_hi != 0
+        bits[:, g, 1] = hi != 0
+        d0 = ((lo & w[:, 0]) | (hi & w[:, 2])).clamp(max=1)
+        d1 = ((lo & w[:, 1]) | (hi & w[:, 3])).clamp(max=1)
+        sq4 = ((sq & 0xFFFFFFFF) | sq_hi) ** 2
+        d = d0 + 2 * d1
+        lo = (sq4 & 0xFFFFFFFF) << d
+        hi = (sq4 >> 32) << d
+    return bits.reshape(b, 2 * t2_max)
+
+
 def acs2_plain(soft4: torch.Tensor, ws2: torch.Tensor):
     """Plain PyTorch version of K3 (``viterbi_cuda.acs2``).
 
@@ -308,7 +342,9 @@ def _decode4(soft: torch.Tensor, t2: torch.Tensor, traceback: str):
         return viterbi_cuda.traceback4(dec), metric
     _check_device(soft)
     dec, metric = acs4_plain(soft8, t2, _ws4(soft.device))
-    return traceback4_plain(dec), metric      # K2 and K2' compute one function
+    if traceback == "onehot64":
+        return traceback4_onehot64_plain(dec), metric
+    return traceback4_plain(dec), metric
 
 
 def _decode2(soft: torch.Tensor):
@@ -332,10 +368,11 @@ def viterbi_decode4(soft: torch.Tensor, lengths=None,
     (batch,) ints, each lane's trellis length (incl. tail), even, positive
     and <= T; short lanes are zero-padded on the right.  Lane k's
     information bits are ``bits[k, :lengths[k] - 6]``; positions beyond
-    are zeros.  ``traceback`` picks the survivor walk on a CUDA tensor:
-    ``"factored"`` (K2, an integer state per lane) or ``"onehot64"`` (K2',
-    a 64-state one-hot carry over a warp); both give the same bits, as
-    ``viterbi_decode_pallas4``'s keyword of the same name does.  Returns
+    are zeros.  ``traceback`` picks the survivor walk: ``"factored"`` (K2
+    or ``traceback4_plain``, an integer state per lane) or ``"onehot64"``
+    (K2' or ``traceback4_onehot64_plain``, a 64-state one-hot mask per
+    lane); both give the same bits, as ``viterbi_decode_pallas4``'s keyword
+    of the same name does.  Returns
     ``(bits (batch, T-6) uint8, metric (batch,))``.
     """
     if soft.ndim != 2:

@@ -8,8 +8,8 @@ lengths): K1 ``acs4`` (replaces
 ``dabtools_tpu_torch/csrc/viterbi2.cu`` (radix-2, odd trellis lengths): K3
 ``acs2`` (replaces ``dabtools_tpu/ops/viterbi_pallas.py::_acs_kernel``)
 and K4 ``traceback2`` (replaces ``::_traceback_kernel``).  Their plain
-PyTorch versions are ``ops/viterbi.py::acs4_plain``, ``::traceback4_plain``
-(for K2 and K2'), ``::acs2_plain`` and ``::traceback2_plain``.
+PyTorch versions are ``ops/viterbi.py::acs4_plain``, ``::traceback4_plain``,
+``::traceback4_onehot64_plain``, ``::acs2_plain`` and ``::traceback2_plain``.
 
 Each source is compiled at first use with ``nvcc`` for ``sm_90a``, all of
 them at once, and linked into one shared library with a plain C
@@ -44,7 +44,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 CHUNK = 32              # (double) steps per staged chunk: kChunk of
-                        # csrc/viterbi4.cu (K1/K2) and csrc/viterbi2.cu
+                        # csrc/viterbi4.cu (K1/K2/K2') and csrc/viterbi2.cu
                         # (K3/K4), for the tests' chunk edges
 
 acs4_launches = 0
@@ -207,7 +207,7 @@ def traceback4(dec: torch.Tensor) -> torch.Tensor:
 
 def traceback4_onehot64(dec: torch.Tensor) -> torch.Tensor:
     """K2': the same function as :func:`traceback4`, with the survivor
-    state carried as a 64-wide one-hot over one warp per lane."""
+    state carried as a 64-state one-hot mask, never as a state index."""
     global traceback4_onehot64_launches
     bits = _traceback("dab_traceback4_onehot64", dec, 4, 2)
     traceback4_onehot64_launches += 1

@@ -114,26 +114,47 @@ def test_radix2_kernels_match_plain(cuda, shape):
 
 
 @pytest.mark.gpu
-def test_onehot64_traceback_matches_k2(cuda):
-    """K2' on K1's decisions of a ragged batch equals K2 and the plain
-    traceback, and ``traceback="onehot64"`` runs it."""
+@pytest.mark.parametrize("t2_max", [1, CHUNK - 1, CHUNK, CHUNK + 1,
+                                    2 * CHUNK, 2 * CHUNK + 1, 1539])
+def test_onehot64_traceback_matches_k2(cuda, t2_max):
+    """K2' equals K2, ``traceback4_plain`` and ``traceback4_onehot64_plain``
+    at T2 on and around the chunk edges (and the flagship's 1539 double
+    steps): on K1's decisions of ragged lanes (lengths 0, 1, a chunk, the
+    whole width, random; a third of the soft bits erased), and on random
+    decision words.  Where T2 holds a codeword, the decode with
+    ``traceback="onehot64"`` runs K1 and K2' once each and gives the
+    messages of full and half-length lanes."""
     from dabtools_tpu_torch.ops import viterbi_cuda as K
-    rng = np.random.default_rng(6)
-    m1, s1 = _noisy_batch(rng, 6, 768)
-    m2, s2 = _noisy_batch(rng, 3, 3072)
+    rng = np.random.default_rng(t2_max)
+    soft = rng.normal(size=(7, t2_max, 8)).astype(np.float32)
+    soft[rng.random(soft.shape) < 1 / 3] = 0.0
+    lengths = [0, 1, CHUNK, t2_max, t2_max, int(rng.integers(0, t2_max + 1)),
+               t2_max - 1]
+    t2 = torch.tensor(np.minimum(lengths, t2_max), dtype=torch.int32,
+                      device=cuda)
+    dec, _ = K.acs4(torch.from_numpy(soft).to(cuda), t2, V._ws4(cuda))
+    words = torch.from_numpy(rng.integers(
+        -2 ** 31, 2 ** 31, size=(9, t2_max, 4)).astype(np.int32)).to(cuda)
+    for d in (dec, words):
+        got = K.traceback4_onehot64(d)
+        torch.testing.assert_close(got, K.traceback4(d), rtol=0, atol=0)
+        torch.testing.assert_close(got, V.traceback4_plain(d), rtol=0,
+                                   atol=0)
+        torch.testing.assert_close(got, V.traceback4_onehot64_plain(d),
+                                   rtol=0, atol=0)
+    n1, n2 = _info_bits(t2_max), _info_bits(t2_max // 2)
+    if n2 <= 0:
+        return
+    m1, s1 = _noisy_batch(rng, 6, n1)
+    m2, s2 = _noisy_batch(rng, 3, n2)
     soft, lengths = V.ragged_lanes([torch.from_numpy(s1).to(cuda),
                                     torch.from_numpy(s2).to(cuda)])
-    b, n4 = soft.shape
-    t2 = torch.from_numpy((lengths // 2).astype(np.int32)).to(cuda)
-    dec, _ = K.acs4(soft.reshape(b, n4 // 8, 8), t2, V._ws4(cuda))
-    got = K.traceback4_onehot64(dec)
-    torch.testing.assert_close(got, K.traceback4(dec), rtol=0, atol=0)
-    torch.testing.assert_close(got, V.traceback4_plain(dec), rtol=0, atol=0)
-    n0 = K.traceback4_onehot64_launches
+    n0 = K.acs4_launches, K.traceback4_onehot64_launches
     bits, _ = V.viterbi_decode4(soft, lengths, traceback="onehot64")
-    assert K.traceback4_onehot64_launches == n0 + 1
-    np.testing.assert_array_equal(bits[:6, :768].cpu().numpy(), m1)
-    np.testing.assert_array_equal(bits[6:].cpu().numpy(), m2)
+    assert (K.acs4_launches, K.traceback4_onehot64_launches) == (n0[0] + 1,
+                                                                 n0[1] + 1)
+    np.testing.assert_array_equal(bits[:6].cpu().numpy(), m1)
+    np.testing.assert_array_equal(bits[6:, :n2].cpu().numpy(), m2)
 
 
 @pytest.mark.gpu

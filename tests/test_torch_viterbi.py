@@ -2,8 +2,9 @@
 package.
 
 On the CPU the port runs the plain PyTorch versions of its kernels
-(``acs4_plain``, ``traceback4_plain``, ``acs2_plain``,
-``traceback2_plain``); they are held against JAX's ``viterbi_decode``
+(``acs4_plain``, ``traceback4_plain``, ``traceback4_onehot64_plain``,
+``acs2_plain``, ``traceback2_plain``); they are held against JAX's
+``viterbi_decode``
 (the XLA scan), ``viterbi_decode_ragged`` and the radix-4 and radix-2
 Pallas kernels in interpret mode, on the same NumPy inputs.
 Contract: decoded bits exact, path metric within ``rtol=1e-5`` (the
@@ -224,25 +225,34 @@ def test_ragged_with_odd_length_matches_jax():
         np.testing.assert_array_equal(bits.numpy(), m)
 
 
-def test_onehot64_traceback_matches_default():
-    """``traceback="onehot64"`` gives the default traceback's bits, and
-    the bits of JAX's one-hot64 Pallas traceback in interpret mode."""
-    rng = np.random.default_rng(15)
-    _, s1 = _noisy_batch(rng, 2, 40)
-    _, s2 = _noisy_batch(rng, 2, 90)
-    soft, lengths = V.ragged_lanes([torch.from_numpy(s1),
-                                    torch.from_numpy(s2)])
-    bits, metric = V.viterbi_decode4(soft, lengths)
-    bits_oh, metric_oh = V.viterbi_decode4(soft, lengths,
+@pytest.mark.parametrize("n1,n2", [(40, 90), (2 * CHUNK - 6, 4 * CHUNK - 6)])
+def test_onehot64_traceback_matches_default(n1, n2):
+    """``traceback="onehot64"`` (``traceback4_onehot64_plain`` on the CPU)
+    gives the default traceback's bits and the bits of JAX's one-hot64
+    Pallas traceback in interpret mode, on ragged lanes right-padded with
+    zeros as ``tests/test_viterbi_pallas.py``'s onehot64 case builds them
+    (the second case: lanes of 1 and 2 chunks of double steps)."""
+    rng = np.random.default_rng(15 + n1)
+    m1, s1 = _noisy_batch(rng, 2, n1)
+    m2, s2 = _noisy_batch(rng, 2, n2)
+    soft = np.zeros((4, s2.shape[-1]), np.float32)
+    soft[:2, : s1.shape[-1]] = s1
+    soft[2:] = s2
+    lengths = np.array([n1 + 6, n1 + 6, n2 + 6, n2 + 6])
+    bits, metric = V.viterbi_decode4(torch.from_numpy(soft), lengths)
+    bits_oh, metric_oh = V.viterbi_decode4(torch.from_numpy(soft), lengths,
                                            traceback="onehot64")
     np.testing.assert_array_equal(bits_oh.numpy(), bits.numpy())
     np.testing.assert_array_equal(metric_oh.numpy(), metric.numpy())
-    pb, _ = viterbi_decode_pallas4(jnp.asarray(soft.numpy()),
-                                   interpret=True, lengths=lengths,
-                                   traceback="onehot64")
+    np.testing.assert_array_equal(bits_oh[:2, :n1].numpy(), m1)
+    np.testing.assert_array_equal(bits_oh[2:].numpy(), m2)
+    pb, pm = viterbi_decode_pallas4(jnp.asarray(soft), interpret=True,
+                                    lengths=lengths, traceback="onehot64")
     np.testing.assert_array_equal(bits_oh.numpy(), np.asarray(pb))
+    np.testing.assert_allclose(metric_oh.numpy(), np.asarray(pm), rtol=1e-5)
     with pytest.raises(ValueError):
-        V.viterbi_decode4(soft, lengths, traceback="onehot16")
+        V.viterbi_decode4(torch.from_numpy(soft), lengths,
+                          traceback="onehot16")
 
 
 def test_short_lane_padding_is_inert():
@@ -383,6 +393,77 @@ def _warp_traceback4(dec):
         out[:, base:base + n] = own[:, :n]
     return torch.stack([out & 0xFF, out >> 8], -1).reshape(
         b, 2 * t2_max).to(torch.uint8)
+
+
+def _warp_traceback4_onehot64(dec):
+    """K2''s schedule: chunks walked from the top, thread i holds step base
+    + i's words; the one-hot (lo, hi) is the same in every thread, as
+    32-bit words, and moves by 32x32->64-bit squares; bit i of u1 / u2
+    takes step i's bits, and after the chunk thread j stores bit j of
+    each."""
+    b, t2_max, _ = dec.shape
+    words = dec.to(torch.int64) & 0xFFFFFFFF
+    out = torch.full((b, t2_max), -1, dtype=torch.int64)
+    lo = torch.ones(b, dtype=torch.int64)
+    hi = torch.zeros(b, dtype=torch.int64)
+    top = (t2_max - 1) // CHUNK * CHUNK
+    for base in range(top, -1, -CHUNK):
+        g = base + _THREADS
+        staged = words[:, g.clamp(max=t2_max - 1)] * (g < t2_max)[None, :,
+                                                                   None]
+        n = min(CHUNK, t2_max - base)
+        u1 = torch.zeros(b, dtype=torch.int64)
+        u2 = torch.zeros(b, dtype=torch.int64)
+        for i in range(n - 1, -1, -1):
+            w = staged[:, i]
+            sq = (lo | hi) * (lo | hi)
+            sq_lo, sq_hi = sq & 0xFFFFFFFF, sq >> 32
+            u1 += sq_hi.clamp(max=1) << i
+            u2 += hi.clamp(max=1) << i
+            d0 = ((lo & w[:, 0]) | (hi & w[:, 2])).clamp(max=1)
+            d1 = ((lo & w[:, 1]) | (hi & w[:, 3])).clamp(max=1)
+            d = d0 + (d1 << 1)
+            x = sq_lo | sq_hi
+            p = x * x
+            lo = ((p & 0xFFFFFFFF) << d) & 0xFFFFFFFF
+            hi = ((p >> 32) << d) & 0xFFFFFFFF
+        own = (((u1[:, None] >> _THREADS) & 1)
+               | (((u2[:, None] >> _THREADS) & 1) << 8))
+        out[:, base:base + n] = own[:, :n]
+    return torch.stack([out & 0xFF, out >> 8], -1).reshape(
+        b, 2 * t2_max).to(torch.uint8)
+
+
+@pytest.mark.parametrize("kind", ["random words", "ragged decisions"])
+@pytest.mark.parametrize("t2_max", [1, CHUNK - 1, CHUNK, CHUNK + 1,
+                                    2 * CHUNK, 2 * CHUNK + 1])
+def test_onehot64_traceback_matches_plain(t2_max, kind):
+    """``traceback4_onehot64_plain`` and K2''s warp schedule, emulated (the
+    32-step staging, the walk from the top partial chunk down, thread j's
+    two bits), against ``traceback4_plain`` at and around the chunk edges:
+    on random decision words (every bit of every plane in play) and on
+    ``acs4_plain``'s decisions of ragged lanes (lengths 0, 1, a chunk, the
+    whole width, random; dead steps hold decision 0).  Bits must be
+    equal."""
+    rng = np.random.default_rng(2000 * t2_max + len(kind))
+    lanes = 7
+    if kind == "random words":
+        dec = torch.from_numpy(rng.integers(
+            -2 ** 31, 2 ** 31, size=(lanes, t2_max, 4)).astype(np.int32))
+    else:
+        soft = 1.0 - 2.0 * rng.integers(0, 2, size=(lanes, t2_max, 8))
+        soft = soft + rng.normal(scale=0.8, size=soft.shape)
+        soft[rng.random(soft.shape) < 1 / 3] = 0.0
+        lengths = [0, 1, CHUNK, t2_max, t2_max,
+                   int(rng.integers(0, t2_max + 1)), t2_max - 1]
+        t2 = torch.tensor(np.minimum(lengths, t2_max), dtype=torch.int32)
+        dec, _ = V.acs4_plain(torch.from_numpy(soft.astype(np.float32)), t2,
+                              V._ws4(torch.device("cpu")))
+    want = V.traceback4_plain(dec)
+    torch.testing.assert_close(V.traceback4_onehot64_plain(dec), want,
+                               rtol=0, atol=0)
+    torch.testing.assert_close(_warp_traceback4_onehot64(dec), want, rtol=0,
+                               atol=0)
 
 
 def test_warp_branch_metric_signs():

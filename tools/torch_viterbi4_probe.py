@@ -4,8 +4,9 @@ CUDA card, and how they compare with another version of their sources.
 
     python3 tools/torch_viterbi4_probe.py [--against CSRC_DIR] [--sass FILE]
 
-1. Times K1 ``acs4`` and K2 ``traceback4`` on batches of full-length lanes
-   (1539 double steps, the flagship's MSC codewords), and K3 ``acs2`` and
+1. Times K1 ``acs4``, K2 ``traceback4`` and K2' ``traceback4_onehot64``
+   on batches of full-length lanes (1539 double steps, the flagship's MSC
+   codewords), and K3 ``acs2`` and
    K4 ``traceback2`` on lanes of 3079 steps (``chip_smoke.py``'s odd
    length), of growing lane count.  One lane alone shows what one
    codeword's chain of steps takes; one lane per SM and one per warp
@@ -18,10 +19,12 @@ CUDA card, and how they compare with another version of their sources.
    K2 and K2' on 640 ragged lanes (64 x 387 + 576 x 1539 double steps),
    K3 and K4 on 640 lanes of 3079 steps.  The two builds' outputs must be
    equal.
-3. Prints each kernel's SASS instruction count (``cuobjdump``) and its
-   longest run without a branch (in K1-K4 the unrolled walk of a full
-   chunk, 32 (double) steps); ``--sass`` writes the whole listing of this
-   build to FILE.
+3. Prints each kernel's SASS instruction count (``cuobjdump``), its
+   longest run without a branch (in K1-K4 and K2' the unrolled walk of a
+   full chunk, 32 (double) steps), and how many warp votes (``VOTE``),
+   shuffles (``SHFL``) and global loads (``LDG``) the kernel and that run
+   hold, for this build and the ``--against`` build; ``--sass`` writes
+   the whole listing of this build to FILE.
 
 Every time is the median over 10 pairs of CUDA events, each pair around
 20 launches back to back, divided by 20.  Prints the card's name and
@@ -60,14 +63,14 @@ def _smi(query: str) -> str:
                           timeout=60).stdout.strip().splitlines()[0]
 
 
-def _load_other(csrc: pathlib.Path) -> ctypes.CDLL:
+def _build_other(csrc: pathlib.Path) -> pathlib.Path:
     """Build the ``.cu`` sources of ``csrc`` into one library, with the
     port's flags and C interface."""
     so = K.BUILD_DIR / "probe_against.so"
     K.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     K._run([[K._nvcc(), *K.NVCC_FLAGS, "-o", str(so),
              *map(str, sorted(csrc.glob("*.cu")))]])
-    return K.load(so)
+    return so
 
 
 def _sass(lib: pathlib.Path) -> str:
@@ -77,20 +80,33 @@ def _sass(lib: pathlib.Path) -> str:
                           text=True, check=True, timeout=120).stdout
 
 
+OPCODES = ("VOTE", "SHFL", "LDG")     # counted in a kernel and its walk
+
+
 def _instruction_counts(sass: str) -> dict:
     """Per kernel: (its instructions, its longest run of instructions
-    without a branch or an exit)."""
-    counts, name = {}, None
+    without a branch or an exit, {opcode: (count in the kernel, count in
+    that run)} for ``OPCODES``)."""
+    kernels, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            counts[name] = [0, 0, 0]        # total, longest run, this run
+            kernels[name] = []
         elif name and line.strip().startswith("/*") and ";" in line:
-            c = counts[name]
-            c[0] += 1
-            c[2] = 0 if ("BRA" in line or "EXIT" in line) else c[2] + 1
-            c[1] = max(c[1], c[2])
-    return {k: (v[0], v[1]) for k, v in counts.items()}
+            kernels[name].append(line)
+    out = {}
+    for name, lines in kernels.items():
+        runs = [[]]
+        for line in lines:
+            if "BRA" in line or "EXIT" in line:
+                runs.append([])
+            else:
+                runs[-1].append(line)
+        walk = max(runs, key=len)
+        out[name] = (len(lines), len(walk), {
+            op: tuple(sum(f" {op}" in line for line in part)
+                      for part in (lines, walk)) for op in OPCODES})
+    return out
 
 
 def lane_scaling(rng, ws4, ws2) -> None:
@@ -106,6 +122,7 @@ def lane_scaling(rng, ws4, ws2) -> None:
         for name, fn, steps in (
                 ("K1", lambda: K.acs4(soft8, t2, ws4), T2),
                 ("K2", lambda: K.traceback4(dec4), T2),
+                ("K2'", lambda: K.traceback4_onehot64(dec4), T2),
                 ("K3", lambda: K.acs2(soft4, ws2), T_RADIX2),
                 ("K4", lambda: K.traceback2(dec2), T_RADIX2)):
             ms = time_ms(fn, REPS, KERNEL_RUN)
@@ -172,14 +189,19 @@ def main() -> int:
     rng = np.random.default_rng(7)
     ws4 = V._ws4(torch.device("cuda"))
     lane_scaling(rng, ws4, V._ws2(torch.device("cuda")))
+    builds = {"this": K.library_path()}
     if args.against:
-        against(rng, ws4, _load_other(args.against))
+        builds["other"] = _build_other(args.against)
+        against(rng, ws4, K.load(builds["other"]))
     print(f"SM clock after the runs: {_smi('clocks.sm,clocks.max.sm')}")
-    sass = _sass(K.library_path())
-    for name, (n, run) in _instruction_counts(sass).items():
-        print(f"SASS {name}: {n} instructions; longest run without a "
-              f"branch {run}")
+    for build, so in builds.items():
+        for name, (n, run, ops) in _instruction_counts(_sass(so)).items():
+            print(f"SASS {build} {name}: {n} instructions; longest run "
+                  f"without a branch {run}; " + ", ".join(
+                      f"{op} {k} ({r} in that run)"
+                      for op, (k, r) in ops.items()))
     if args.sass:
+        sass = _sass(builds["this"])
         args.sass.parent.mkdir(parents=True, exist_ok=True)
         args.sass.write_text(sass)
     return 0
