@@ -67,6 +67,28 @@ of which raises on failure:
    plain versions at that lane batch and timed; the batched ms per block
    beside a single-stream 8-frame block and the device operations of
    each (``torch.profiler``).
+9. RS: 2048 RS(120,110) codewords (0-5 byte errors a row, every eighth
+   row 6-8) and 256 RS(204,188) codewords (0-8, every fourth row 9-12)
+   through ``make_rs_decoder`` on the card: data and counts must equal
+   the NumPy codec's (``utils.gf256.rs_decode``); one decode under the
+   sync debug mode 'error'; codewords/s from CUDA events.
+10. mixed mux: 6 x 128 kbit/s EEP 3-A, UEP (Table 31 idx 16) and DAB+
+   (72 kbit/s EEP 3-A of real superframes) modulated for 40 frames,
+   impaired to u8 as in phase 5, through ``DabReceiver(n_frames=16,
+   ensemble=mix)``: every ETI frame's 8 payloads equal the modulator's,
+   ``SuperframeDecoder(72)`` on the DAB+ sub-channel gives a run of the
+   original access units with good CRCs, and K1/K2 launch once per
+   device step.
+11. time-block span: the mixed mux as a 2 x 4 ``timeblock_receiver``
+   span on one card (8 mesh cells on ``cuda:0``, 6 own and 5 warmup
+   frames per shard): every FIB CRC good, every row equal to the
+   modulator's payload and to the sequential decode's, one K1 and one K2
+   launch per span, the host half (``EtiAssembler.frame_batch`` ->
+   ``EtiParser`` -> ``SuperframeDecoder``) gives the original access
+   units, a warm span passes the sync-free check; K1/K2 held against
+   their plain versions at the span's lane batch and timed; ms per span,
+   the aggregate real-time multiple and the device operations per span
+   beside one cell's ``pre_viterbi``.
 
 Every path starts with all five launch counters at 0 and reads them
 when it ends.  Each phase prints its seconds.  The line before the last
@@ -95,7 +117,9 @@ import torch
 
 from dabtools_tpu_torch import testsignal as S
 from dabtools_tpu_torch.cli import dab2eti, dabscan
-from dabtools_tpu_torch.constants import MODE_I
+from dabtools_tpu_torch.constants import MODE_I, RS_K, RS_N, RS_T
+from dabtools_tpu_torch.eti.assemble import EtiAssembler
+from dabtools_tpu_torch.eti.parse import EtiParser
 from dabtools_tpu_torch.mod.convcode import conv_encode
 from dabtools_tpu_torch.mod.impairments import (
     awgn,
@@ -105,17 +129,27 @@ from dabtools_tpu_torch.mod.impairments import (
 from dabtools_tpu_torch.models.receiver import (
     DabReceiver,
     block_samples,
+    pipeline_core,
     pre_viterbi,
     process_block,
     to_host,
 )
 from dabtools_tpu_torch.ops import viterbi as V
 from dabtools_tpu_torch.ops import viterbi_cuda as K
+from dabtools_tpu_torch.ops.fec import init_deinterleave_ring
 from dabtools_tpu_torch.ops.fir import Channelizer
 from dabtools_tpu_torch.ops.resample import Resampler
+from dabtools_tpu_torch.ops.rs import make_rs_decoder
 from dabtools_tpu_torch.ops.sync import coarse_null_sync
 from dabtools_tpu_torch.parallel.channel import channel_parallel_block
+from dabtools_tpu_torch.parallel.mesh import make_receiver_mesh
+from dabtools_tpu_torch.parallel.timeblock import (
+    halo_sizes,
+    timeblock_receiver,
+)
 from dabtools_tpu_torch.tables.bandiii import BAND_III as BAND
+from dabtools_tpu_torch.utils.crc import crc16_ok_batch
+from dabtools_tpu_torch.utils.gf256 import rs_decode, rs_encode, rs_parity
 
 SEED = 20261016
 BLOCK_FRAMES = 16
@@ -141,6 +175,11 @@ WB_MUXES = {"6A": (0x6A01, "MUX 6A"), "6C": (0x6C03, "MUX 6C"),
 BATCH = 8                       # phase 8: streams per batched block
 BATCH_FRAMES = 8
 BATCH_CFO_HZ = (-400.0, -250.0, -100.0, 50.0, 150.0, 250.0, 350.0, 450.0)
+RS_BATCH = 2048                 # phase 9: RS(120,110) codewords, as bench.py
+RS2_BATCH = 256                 # RS(204,188) codewords
+MIX_FRAMES = 40                 # phase 10: 2 device steps of 16 frames
+TB_FRAMES = 6                   # phase 11: own frames per time shard
+TB_WARMUP = 5                   # warmup frames re-priming each shard
 FRAME_SIZE = MODE_I.frame_size
 
 # Bounds: NVIDIA H100 SXM data-sheet peaks.
@@ -718,15 +757,19 @@ def wideband_phase(rng, card: str) -> None:
 
 
 def _device_ops(fn) -> str:
-    """Device operations (kernels, copies, sets) ``fn`` runs, from a
-    ``torch.profiler`` trace of one call, or "not measured"."""
+    """Device operations (kernels, copies, sets) ``fn`` runs and their
+    summed device time, from a ``torch.profiler`` trace of one call, or
+    "not measured"."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    n = sum(e.count for e in prof.key_averages()
-            if e.device_type.name == "CUDA")
-    return str(n) if n else "not measured"
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    n = sum(e.count for e in events)
+    us = sum(getattr(e, "self_device_time_total", 0) for e in events)
+    if not n:
+        return "not measured"
+    return f"{n} ({us / 1e3:.3f} ms on the device)" if us else str(n)
 
 
 def channel_batch_phase(rng, card: str) -> None:
@@ -836,6 +879,261 @@ def channel_batch_phase(rng, card: str) -> None:
           f"single {_device_ops(single)} (torch.profiler)")
 
 
+def rs_phase(rng, card: str) -> None:
+    """The batched RS decoder on the card against the NumPy codec, sync
+    free, and its codewords/s."""
+    def corrupt(cw, errs):
+        bad = cw.copy()
+        for row, k in enumerate(errs):
+            for p in rng.choice(cw.shape[1], size=k, replace=False):
+                bad[row, p] ^= rng.integers(1, 256)
+        return bad
+
+    # RS(120,110) as bench.py builds its batch; 0-5 byte errors a row,
+    # every eighth row 6-8 (uncorrectable, or miscorrected alike)
+    errs = rng.integers(0, RS_T + 1, size=RS_BATCH)
+    errs[::8] = rng.integers(RS_T + 1, RS_T + 4, size=RS_BATCH // 8)
+    data = rng.integers(0, 256, size=(RS_BATCH, RS_K), dtype=np.uint8)
+    bad = corrupt(rs_encode(data), errs)
+    # RS(204,188), t=8: 0-8 errors, every fourth row 9-12
+    errs2 = rng.integers(0, 9, size=RS2_BATCH)
+    errs2[::4] = rng.integers(9, 13, size=RS2_BATCH // 4)
+    data2 = rng.integers(0, 256, size=(RS2_BATCH, 188), dtype=np.uint8)
+    bad2 = corrupt(np.concatenate([data2, rs_parity(data2, 16)], axis=1),
+                   errs2)
+    t0 = time.perf_counter()
+    want = rs_decode(bad), rs_decode(bad2, n_parity=16)
+    print(f"NumPy codec: {RS_BATCH} + {RS2_BATCH} codewords in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    cw = torch.from_numpy(bad).cuda()
+    for (n, k), x, (ref_data, ref_n), e in (
+            ((RS_N, RS_K), cw, want[0], errs),
+            ((204, 188), torch.from_numpy(bad2).cuda(), want[1], errs2)):
+        got_data, got_n = make_rs_decoder(n, k)(x)
+        got_data, got_n = got_data.cpu().numpy(), got_n.cpu().numpy()
+        if not (np.array_equal(got_data, ref_data)
+                and np.array_equal(got_n, ref_n)):
+            raise AssertionError(f"RS({n},{k}) on the card differs from "
+                                 f"the NumPy codec")
+        print(f"RS({n},{k}): {x.shape[0]} codewords, {int((e > 0).sum())} "
+              f"with errors, {int((got_n < 0).sum())} flagged "
+              f"uncorrectable; data and counts equal the NumPy codec's")
+    dec = make_rs_decoder()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dec(cw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print("rs_decode_batch: no host synchronization inside (sync debug "
+          "mode 'error')")
+    ms = time_ms(lambda: dec(cw), 10, KERNEL_RUN)
+    # one 128 kbit/s DAB+ service: 16 columns per 120 ms superframe
+    print(f"RS(120,110): {ms:.4f} ms per batch of {RS_BATCH} = "
+          f"{RS_BATCH / ms * 1e3:.0f} codewords/s = "
+          f"{RS_BATCH / 16 / (ms * 1e-3) * 0.12:.0f}x real time in 128 "
+          f"kbit/s services (CUDA events around {KERNEL_RUN} decodes "
+          f"back to back, median of 10) on {card}")
+    ops = _device_ops(lambda: dec(cw))
+    print(f"device operations per RS(120,110) decode: {ops} "
+          f"(torch.profiler)")
+
+
+def mixed_phase(rng) -> None:
+    """The mixed mux (EEP, UEP, DAB+) end to end from u8 on the card.
+
+    The stream starts ``TIMING_OFFSET`` samples into frame 0, as phase 5's
+    does: the receiver is given the ensemble, so its first block already
+    decodes, and on a run of leading zeros its coarse sync would lock at
+    0."""
+    mix = S.mixed_ensemble()
+    rows, aus = S.dabplus_superframes(MIX_FRAMES * 4, rng)
+    x, payload = S.modulate(mix, MIX_FRAMES, rng,
+                            rows={S.MIXED_DABPLUS: rows})
+    u8 = S.impaired_u8(x, rng, SNR_DB, CFO_HZ, -TIMING_OFFSET)
+    rx = DabReceiver(n_frames=BLOCK_FRAMES, ensemble=mix, device="cuda")
+    _reset_counts()
+    eti = rx.feed(u8)
+    launches = _counts()
+    raw = b"".join(eti)
+    n = S.check_eti_payloads(eti, payload, S.first_payload_cif(raw, payload))
+    if n < 32:
+        raise AssertionError(f"mixed mux: only {n} ETI frames")
+    print(f"mixed mux: {MIX_FRAMES} frames u8 (AWGN {SNR_DB} dB, CFO "
+          f"{CFO_HZ} Hz, from sample {TIMING_OFFSET}); {n} ETI frames, all 8 "
+          f"payloads (6 x EEP, UEP idx 16, DAB+) byte-identical to the "
+          f"modulator's")
+    frames = list(EtiParser().feed(raw))
+    n_au = S.check_dabplus(
+        [f.subchannel_data(S.MIXED_DABPLUS) for f in frames], aus)
+    print(f"DAB+ sub-channel: {n_au} access units, every CRC good, a run "
+          f"of the builder's")
+    for name in ("acs4", "traceback4"):
+        if launches[name] != rx.device_steps:
+            raise AssertionError(f"{name} launched {launches[name]} times "
+                                 f"in {rx.device_steps} device steps")
+    print(f"mixed mux launches: {launches} in {rx.device_steps} device "
+          f"steps")
+
+
+def timeblock_phase(rng, card: str) -> None:
+    """The mixed mux as a 2 x 4 time-block span on one card."""
+    mix = S.mixed_ensemble()
+    n_ch, n_time, f_own, warm = 2, 4, TB_FRAMES, TB_WARMUP
+    g0 = warm + 1
+    n_total = g0 + n_time * f_own + 1
+    rows, aus = S.dabplus_superframes(n_total * 4, rng)
+    x, payload = S.modulate(mix, n_total, rng, rows={S.MIXED_DABPLUS: rows})
+    lh, rh = halo_sizes(warm)
+    s0, sl = g0 * FRAME_SIZE, n_time * f_own * FRAME_SIZE
+
+    def tile(a):
+        return torch.from_numpy(np.ascontiguousarray(
+            np.broadcast_to(a, (n_ch, a.size)))).cuda()
+
+    span, prefix, suffix = (tile(x[s0:s0 + sl]), tile(x[s0 - lh:s0]),
+                            tile(x[s0 + sl:s0 + sl + rh]))
+    mesh = make_receiver_mesh(n_channels=n_ch, n_time=n_time,
+                              devices=[torch.device("cuda", 0)] * 8)
+    fn = timeblock_receiver(mesh, mix, frames_per_shard=f_own,
+                            warmup_frames=warm)
+
+    def run():
+        return fn(span, prefix, suffix, g0)
+
+    _reset_counts()
+    out = to_host(run())
+    launches = _counts()
+    print(f"time-block span: mesh {mesh.shape} on one card, {f_own} own + "
+          f"{warm} warmup frames per shard, g0 {g0}; launches {launches}")
+    if (launches["acs4"], launches["traceback4"]) != (1, 1):
+        raise AssertionError("the span is not one K1 and one K2 launch")
+
+    n_frames = n_time * f_own
+    n_rows = n_frames * 4
+    fib = out["fib_bytes"]
+    if fib.shape != (n_ch, n_frames, 12, 32):
+        raise AssertionError(f"fib_bytes shape {fib.shape}")
+    if not crc16_ok_batch(fib.reshape(-1, 32)).all():
+        raise AssertionError("FIB CRC failures in the span")
+    order = [s.subchid for s in mix.sorted_subchannels()]
+    # the sequential receiver over frames 0..g0+n_frames-1 of channel 0
+    seq, _, _ = pipeline_core(
+        torch.from_numpy(x).cuda(),
+        torch.arange(g0 + n_frames, dtype=torch.int32,
+                     device="cuda") * FRAME_SIZE,
+        {str(s.subchid): init_deinterleave_ring(s.profile.tx_bits, "cuda")
+         for s in mix.subchannels},
+        torch.zeros((), dtype=torch.int32, device="cuda"), ensemble=mix)
+    seq = to_host(seq)
+    for sc in order:
+        got = out["subch"][str(sc)]
+        want_seq = seq["subch"][str(sc)][g0 * 4: g0 * 4 + n_rows]
+        for c in range(n_ch):
+            if not np.array_equal(got[c], want_seq):
+                raise AssertionError(f"subch {sc} channel {c}: rows differ "
+                                     f"from the sequential decode")
+            for j in range(n_rows):
+                if (got[c, j].tobytes()
+                        != payload[sc][g0 * 4 + j - 15].tobytes()):
+                    raise AssertionError(f"subch {sc} channel {c} row {j} "
+                                         f"differs from the modulator's")
+    print(f"time-block span: every FIB CRC good; {n_rows} rows x "
+          f"{len(order)} sub-channels x {n_ch} channels equal the "
+          f"modulator's payload and the sequential decode's rows")
+
+    # the host half: ETI frames -> parse -> payloads -> DAB+ access units
+    asm = EtiAssembler(mix)
+    fibs_list, subch_list, cif_ns = [], [], []
+    for j in range(15, n_rows):
+        n = g0 * 4 + j - 15
+        fi, ci = n // 4 - g0, n % 4
+        fibs_list.append([fib[0, fi, 3 * ci + k].tobytes()
+                          for k in range(3)])
+        subch_list.append({sc: out["subch"][str(sc)][0, j].tobytes()
+                           for sc in order})
+        cif_ns.append(n)
+    frames = list(EtiParser().feed(b"".join(
+        asm.frame_batch(fibs_list, subch_list))))
+    if len(frames) != len(cif_ns):
+        raise AssertionError("assembled ETI frames do not parse back")
+    for k, f in enumerate(frames):
+        if f.fic != b"".join(fibs_list[k]) or any(
+                f.subchannel_data(sc) != payload[sc][cif_ns[k]].tobytes()
+                for sc in order):
+            raise AssertionError(f"ETI round trip differs at CIF "
+                                 f"{cif_ns[k]}")
+    n_au = S.check_dabplus(
+        [f.subchannel_data(S.MIXED_DABPLUS) for f in frames], aus)
+    print(f"time-block host half: {len(frames)} assembled ETI frames parse "
+          f"back with their FIBs and payloads; {n_au} DAB+ access units "
+          f"with good CRCs, a run of the builder's")
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print("time-block span: no host synchronization inside (sync debug "
+          "mode 'error')")
+
+    # K1/K2 against their plain versions at the span's lane batch, as
+    # the receiver builds it: cell (c, i) reads samples [i*F*fr,
+    # i*F*fr + LH + F*fr + RH) of prefix + span + suffix
+    full = torch.cat([prefix, span, suffix], dim=1)
+    guesses = (lh - warm * FRAME_SIZE) + torch.arange(
+        warm + f_own, dtype=torch.int32, device="cuda") * FRAME_SIZE
+
+    def cell(c, i):
+        o = i * f_own * FRAME_SIZE
+        rings = {str(s.subchid): init_deinterleave_ring(s.profile.tx_bits,
+                                                        "cuda")
+                 for s in mix.subchannels}
+        cif0 = torch.tensor((g0 + i * f_own - warm) * 4, dtype=torch.int32,
+                            device="cuda")
+        return pre_viterbi(full[c, o: o + lh + f_own * FRAME_SIZE + rh],
+                           guesses, rings, cif0, ensemble=mix)
+
+    jobs = [j for c in range(n_ch) for i in range(n_time)
+            for j in cell(c, i)[2]]
+    soft, lengths = V.ragged_lanes(jobs)
+    b, n4 = soft.shape
+    soft8 = soft.reshape(b, n4 // 8, 8)
+    t2 = torch.from_numpy((lengths // 2).astype(np.int32)).cuda()
+    ws4 = V._ws4(soft.device)
+    dec_k, bits_k, *_ = hold_k1k2(soft8, t2, ws4, f"time-block span, {b} "
+                                  f"lanes of {sorted(set(lengths.tolist()))} "
+                                  f"steps")
+    acs_ms = time_ms(lambda: K.acs4(soft8, t2, ws4), 10, KERNEL_RUN)
+    tb_ms = time_ms(lambda: K.traceback4(dec_k), 10, KERNEL_RUN)
+    acs_bound, tb_bound = _k1k2_bounds(lengths, dec_k, bits_k, ws4)
+    print(f"K1 acs4 at {b} lanes: {acs_ms:.4f} ms, bound "
+          f"{acs_bound[0]:.4f} ms by {acs_bound[1]}; K2 traceback4: "
+          f"{tb_ms:.4f} ms, bound {tb_bound[0]:.4f} ms by {tb_bound[1]}; "
+          f"on {card}")
+
+    walls = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        to_host(run())
+        walls.append(time.perf_counter() - t0)
+    ms = statistics.median(walls[1:]) * 1e3
+    sig = n_ch * n_frames * 96.0                   # ms of signal
+    one = _device_ops(lambda: cell(0, 1))
+    print(f"time-block span: {ms:.2f} ms per span of {n_ch} x {n_frames} "
+          f"frames (+{warm} warmup frames per shard) = {sig / ms:.1f}x real "
+          f"time aggregate (host clock, median of 5 after a warm-up, "
+          f"device-resident complex64 input, ending in the one download) "
+          f"on {card}")
+    print(f"device operations per span: {_device_ops(run)} "
+          f"(torch.profiler); one cell's pre_viterbi: {one}, x "
+          f"{n_ch * n_time} cells")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -862,6 +1160,9 @@ def main() -> int:
     phase("resampler", resampler_phase, rng, card)
     phase("wideband + dabscan", wideband_phase, rng, card)
     phase("channel batch", channel_batch_phase, rng, card)
+    phase("RS", rs_phase, rng, card)
+    phase("mixed mux", mixed_phase, rng)
+    phase("time-block span", timeblock_phase, rng, card)
     print(f"all phases: {time.perf_counter() - t_start:.1f} s (build "
           f"included)")
     # Each kernel's launches come from the path that drives it: K1/K2 from

@@ -1,1 +1,2 @@
-"""ETI(NI) parsing, assembly and EDI framing (host side)."""
+"""ETI(NI) parsing, assembly and EDI framing, and the DAB+ superframe path
+(host side)."""

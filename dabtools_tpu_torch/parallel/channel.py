@@ -1,12 +1,13 @@
 """Channel-parallel decoding: many IQ streams as one batch.
 
-Port of ``dabtools_tpu/parallel/channel.py`` on one device (the JAX
-function's ``mesh`` placement comes with the sharding slice).  The JAX
-package vmaps the per-stream pipeline over a leading channel axis; here
-each stream runs the receiver's :func:`pre_viterbi` in turn, and then
-every stream's FIC and MSC codewords go to the Viterbi as ONE ragged
-dispatch: the channel axis is flattened into the lane axis, so K1 and K2
-launch once per batched block whatever the channel count.
+Port of ``dabtools_tpu/parallel/channel.py``.  The JAX package vmaps the
+per-stream pipeline over a leading channel axis; here each stream runs the
+receiver's :func:`pre_viterbi` in turn, and then every stream's FIC and
+MSC codewords go to the Viterbi as ONE ragged dispatch per device: the
+channel axis is flattened into the lane axis, so K1 and K2 launch once
+per batched block and device whatever the channel count.  With a
+``mesh``, each stream runs on its channel row's device, as the JAX
+``mesh=`` places it.
 """
 
 from __future__ import annotations
@@ -18,49 +19,70 @@ from dabtools_tpu_torch.fic.config import Ensemble
 from dabtools_tpu_torch.models.receiver import post_viterbi, pre_viterbi
 from dabtools_tpu_torch.ops.sync import coarse_null_sync
 from dabtools_tpu_torch.ops.viterbi import viterbi_decode_ragged
+from dabtools_tpu_torch.parallel.mesh import ReceiverMesh
 
 
-def _stack(trees: list) -> dict:
+def _stack(trees: list, device: torch.device) -> dict:
     """Dicts of tensors with one structure -> one dict of the tensors
-    stacked along a new leading axis."""
-    return {k: (_stack([t[k] for t in trees]) if isinstance(v, dict)
-                else torch.stack([t[k] for t in trees]))
+    stacked along a new leading axis on ``device``."""
+    return {k: (_stack([t[k] for t in trees], device) if isinstance(v, dict)
+                else torch.stack([t[k].to(device) for t in trees]))
             for k, v in trees[0].items()}
+
+
+def decode_by_device(devices: list, jobs: list) -> list:
+    """Item ``i``'s codeword batches ``jobs[i]`` (all of one length list,
+    on ``devices[i]``) -> its decoded ``[(bits, metric), ...]``, with ONE
+    ragged Viterbi dispatch per distinct device for all of its items."""
+    decoded = [None] * len(jobs)
+    for dev in dict.fromkeys(devices):
+        items = [i for i, d in enumerate(devices) if d == dev]
+        res = viterbi_decode_ragged([j for i in items for j in jobs[i]])
+        per = len(jobs[items[0]])
+        for k, i in enumerate(items):
+            decoded[i] = res[k * per:(k + 1) * per]
+    return decoded
 
 
 def channel_parallel_block(x, rings, cif_count, *,
                            ensemble: Ensemble | None, mode=C.MODE_I,
                            n_frames: int = 8, search: int = 192,
-                           max_int_cfo: int = 8):
+                           max_int_cfo: int = 8,
+                           mesh: ReceiverMesh | None = None):
     """Decode a batch of streams: ``x`` (n_channels, block_samples)
     complex64 tensor.
 
     ``rings``: {subchid str: (n_channels, 16, n_bits) tensor};
-    ``cif_count``: 0-dim int32 tensor shared by the streams.  All on one
-    device.  Returns the structure of ``process_block``'s result with a
-    leading channel axis on ``out``'s and the rings' leaves, and the
-    advanced CIF counter.  ``ensemble=None`` with ``rings={}`` is the
-    FIC-only pass.
+    ``cif_count``: 0-dim int32 tensor shared by the streams; all on
+    ``x``'s device.  Returns the structure of ``process_block``'s result
+    with a leading channel axis on ``out``'s and the rings' leaves, and
+    the advanced CIF counter, on ``x``'s device.  ``ensemble=None`` with
+    ``rings={}`` is the FIC-only pass.  With ``mesh``, the streams split
+    over its channel rows as a sharding over ``channels`` splits them
+    (:meth:`ReceiverMesh.rows_of`) and each runs on its row's device.
     """
-    off = torch.arange(n_frames, dtype=torch.int32,
-                       device=x.device) * mode.frame_size
+    n = x.shape[0]
+    devices = ([x.device] * n if mesh is None else
+               [mesh.devices[r][0] for r in mesh.rows_of(n)])
+    offsets: dict = {}
     outs, new_rings, jobs = [], [], []
     groups: dict = {}
-    for c in range(x.shape[0]):
-        sync = coarse_null_sync(x[c], mode)
+    for c, dev in enumerate(devices):
+        xc = x[c].to(dev)
+        if dev not in offsets:
+            offsets[dev] = torch.arange(n_frames, dtype=torch.int32,
+                                        device=dev) * mode.frame_size
+        sync = coarse_null_sync(xc, mode)
         ns = sync["null_start"]
         out, ring, job, groups = pre_viterbi(
-            x[c], ns + off, {k: v[c] for k, v in rings.items()}, cif_count,
-            ensemble=ensemble, mode=mode, search=search,
+            xc, ns + offsets[dev], {k: v[c].to(dev) for k, v in rings.items()},
+            cif_count.to(dev), ensemble=ensemble, mode=mode, search=search,
             max_int_cfo=max_int_cfo,
             sync_diag={"null_start": ns, "null_ratio": sync["null_ratio"]})
         outs.append(out)
         new_rings.append(ring)
         jobs.append(job)
-    decoded = viterbi_decode_ragged([j for job in jobs for j in job])
-    per = len(jobs[0])
-    for c, out in enumerate(outs):
-        post_viterbi(out, groups, decoded[c * per:(c + 1) * per], n_frames,
-                     mode)
-    return (_stack(outs), _stack(new_rings),
+    for out, dec in zip(outs, decode_by_device(devices, jobs)):
+        post_viterbi(out, groups, dec, n_frames, mode)
+    return (_stack(outs, x.device), _stack(new_rings, x.device),
             cif_count + n_frames * mode.n_cifs)

@@ -1,6 +1,7 @@
 """Known-answer signals for exercising the port: the flagship mux as
 impaired u8 IQ (optionally with TII), at another sample rate, or several
-such muxes in one wideband Band III capture; and coded Viterbi lanes with
+such muxes in one wideband Band III capture; the mixed mux (EEP, UEP and
+a DAB+ sub-channel of real superframes); and coded Viterbi lanes with
 their messages.
 
 Host-side NumPy, built on the port's copies of the transmitter modules
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from dabtools_tpu_torch import constants as C
+from dabtools_tpu_torch.eti.dabplus import SuperframeBuilder, SuperframeDecoder
 from dabtools_tpu_torch.eti.parse import EtiParser
 from dabtools_tpu_torch.fic.config import (
     Ensemble,
@@ -51,11 +53,73 @@ def flagship_ensemble(eid: int = 0x4FFF,
     return Ensemble(eid=eid, subchannels=subs, services=svcs, label=label)
 
 
-def modulate(ens: Ensemble, n_frames: int, rng, tii=None):
+MIXED_DABPLUS = 7               # the mixed mux's DAB+ sub-channel
+MIXED_DABPLUS_KBPS = 72         # ... and its bitrate
+
+
+def mixed_ensemble() -> Ensemble:
+    """The mixed mux, every protection family in one Mode I ensemble:
+    6 x 128 kbit/s EEP 3-A, one UEP sub-channel (Table 31 idx 16: 64
+    kbit/s P3) and one DAB+ sub-channel (EEP 3-A 72 kbit/s, ascty=63);
+    678/864 CUs."""
+    subs = tuple(
+        Subchannel.eep(i, start_cu=96 * i, level=3, option="A",
+                       bitrate_kbps=128)
+        for i in range(6)
+    ) + (Subchannel.uep(6, start_cu=576, table_index=16),
+         Subchannel.eep(MIXED_DABPLUS, start_cu=624, level=3, option="A",
+                        bitrate_kbps=MIXED_DABPLUS_KBPS))
+    svcs = tuple(
+        Service(sid=0x100 + i, label=f"SVC {i}", components=(
+            ServiceComponent(tmid=0, subchid=i,
+                             ascty=63 if i == MIXED_DABPLUS else 0),))
+        for i in range(8))
+    return Ensemble(eid=0x4FFD, subchannels=subs, services=svcs,
+                    label="DRYRUN")
+
+
+def dabplus_superframes(n_cifs: int, rng):
+    """``n_cifs`` logical frames of the mixed mux's DAB+ sub-channel: real
+    superframes (firecode, RS(120,110), AU CRCs) of random AUs, from the
+    port's ``SuperframeBuilder``.  Returns ((n_cifs, 216) uint8 rows, the
+    AUs in transmission order)."""
+    sfb = SuperframeBuilder(MIXED_DABPLUS_KBPS)
+    aus_flat: list[bytes] = []
+    sf_rows = []
+    for _ in range(n_cifs // C.SUPERFRAME_FRAMES + 1):
+        aus = [rng.integers(0, 256, sz, dtype=np.uint8).tobytes()
+               for sz in sfb.au_sizes()]
+        aus_flat += aus
+        sf_rows.append(sfb.build(aus))
+    return np.concatenate(sf_rows)[:n_cifs], aus_flat
+
+
+def check_dabplus(rows: list[bytes], aus: list[bytes]) -> int:
+    """Feed the mixed mux's DAB+ logical frames ``rows`` to the port's
+    ``SuperframeDecoder``; raises AssertionError unless it gives a run
+    of ``aus``, in order, with every CRC good.  Returns the number of
+    access units."""
+    dec = SuperframeDecoder(MIXED_DABPLUS_KBPS)
+    got = [a for r in rows for a in dec.feed(r)]
+    if not got or not all(a.crc_ok for a in got):
+        raise AssertionError(f"DAB+ decode: {len(got)} AUs, "
+                             f"{sum(not a.crc_ok for a in got)} bad CRCs")
+    data = [a.data for a in got]
+    if data[0] not in aus:
+        raise AssertionError("DAB+ decode: first AU is none of the "
+                             "builder's")
+    k0 = aus.index(data[0])
+    if data != aus[k0: k0 + len(data)]:
+        raise AssertionError("DAB+ AU stream differs from the builder's")
+    return len(got)
+
+
+def modulate(ens: Ensemble, n_frames: int, rng, tii=None, rows=None):
     """Complex64 baseband of ``n_frames`` Mode I frames of ``ens`` with
     random payloads, and TII ``(sub_id, main_id)`` in the null symbol if
-    ``tii`` is given; returns (samples, {subchid: (n_cifs, data_bytes)
-    uint8})."""
+    ``tii`` is given; ``rows`` ({subchid: (>= n_cifs, data_bytes) uint8})
+    replaces those sub-channels' random payloads.  Returns (samples,
+    {subchid: (n_cifs, data_bytes) uint8})."""
     order = [s.subchid for s in ens.sorted_subchannels()]
     mod = Modulator([SubchannelSource(s.start_cu, s.profile)
                      for s in ens.sorted_subchannels()], tii=tii)
@@ -63,6 +127,8 @@ def modulate(ens: Ensemble, n_frames: int, rng, tii=None):
     payloads = {sc: np.unpackbits(rng.integers(
         0, 256, size=(n_cifs, ens.subchannel(sc).data_bytes),
         dtype=np.uint8), axis=-1) for sc in order}
+    for sc, r in (rows or {}).items():
+        payloads[sc] = np.unpackbits(r[:n_cifs], axis=-1)
     x = mod.frames(n_frames, lambda f: build_fibs_for_ensemble(ens, f),
                    lambda f, i: payloads[order[i]][f * 4:(f + 1) * 4])
     return x, {sc: np.packbits(p, axis=-1) for sc, p in payloads.items()}

@@ -77,13 +77,18 @@ def test_copy_differs_only_in_imports(rel):
 
 
 def _top_level(path: pathlib.Path, name: str) -> str:
+    """The source of the top-level function, class or assignment
+    ``name``, decorators included."""
     src = path.read_text()
     for node in ast.parse(src).body:
-        names = ([node.name] if isinstance(node, ast.FunctionDef) else
+        names = ([node.name] if isinstance(node, (ast.FunctionDef,
+                                                  ast.ClassDef)) else
                  [t.id for t in getattr(node, "targets", [])
                   if isinstance(t, ast.Name)])
         if name in names:
-            return ast.get_source_segment(src, node)
+            return "\n".join(
+                ast.get_source_segment(src, n)
+                for n in [*getattr(node, "decorator_list", []), node])
     raise LookupError(f"{name} not in {path}")
 
 
@@ -93,6 +98,54 @@ def test_cli_input_readers_are_copies(name):
     rel = "cli/dab2eti.py"
     assert (_top_level(PORT_PKG / rel, name)
             == _top_level(JAX_PKG / rel, name))
+
+
+# eti/dabplus.py is a copy but for ``_rs_decode_columns``, which calls
+# the port's own RS decoder (tested below by behaviour), and the NumPy
+# fallback's ``_RS_FALLBACK_WARNED``, which the port drops.
+DABPLUS_VERBATIM = ["log", "_AU_TABLE", "SuperframeConfig", "AccessUnit",
+                    "SuperframeBuilder", "SuperframeDecoder", "adts_wrap"]
+
+
+@pytest.mark.parametrize("name", DABPLUS_VERBATIM)
+def test_dabplus_is_a_copy_but_for_its_rs_call(name):
+    rel = "eti/dabplus.py"
+    assert (_top_level(PORT_PKG / rel, name)
+            == _top_level(JAX_PKG / rel, name))
+
+
+def test_dabplus_has_no_other_definitions():
+    """Every top-level name of the port's ``eti/dabplus.py`` is held
+    above or is ``_rs_decode_columns``; its docstring is the
+    original's."""
+    port = ast.parse((PORT_PKG / "eti/dabplus.py").read_text())
+    names = {n.name if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+             else t.id for n in port.body
+             if not isinstance(n, (ast.Import, ast.ImportFrom, ast.Expr))
+             for t in getattr(n, "targets", [n])}
+    assert names == {*DABPLUS_VERBATIM, "_rs_decode_columns"}
+    original = ast.parse((JAX_PKG / "eti/dabplus.py").read_text())
+    assert ast.get_docstring(port) == ast.get_docstring(original)
+
+
+def test_dabplus_rs_decode_columns_is_the_numpy_codec():
+    """The port's ``_rs_decode_columns``: NumPy in, NumPy out, equal to
+    the NumPy codec, uncorrectable columns flagged -1."""
+    from dabtools_tpu.utils.gf256 import rs_decode, rs_encode
+    from dabtools_tpu_torch.eti.dabplus import _rs_decode_columns
+    rng = np.random.default_rng(9)
+    table = rs_encode(rng.integers(0, 256, size=(9, jC.RS_K),
+                                   dtype=np.uint8))
+    for col, k in enumerate([0, 1, 5, 6, 9, 3, 0, 2, 7]):
+        for p in rng.choice(jC.RS_N, size=k, replace=False):
+            table[col, p] ^= rng.integers(1, 256)
+    data, counts = _rs_decode_columns(table.copy())
+    ref_data, ref_counts = rs_decode(table)
+    assert isinstance(data, np.ndarray) and data.dtype == np.uint8
+    assert isinstance(counts, np.ndarray) and counts.dtype == np.int32
+    np.testing.assert_array_equal(data, ref_data)
+    np.testing.assert_array_equal(counts, ref_counts)
+    assert (counts[[3, 4, 8]] == -1).all()
 
 
 def _ensembles():

@@ -345,3 +345,72 @@ def test_channel_batch_on_card_matches_cpu(cuda):
     np.testing.assert_array_equal(got["fib_bytes"], want["fib_bytes"])
     np.testing.assert_array_equal(got["subch"]["1"], want["subch"]["1"])
     assert rings["1"].is_cuda and rings["1"].shape == (3, 16, nb)
+
+
+@pytest.mark.gpu
+def test_rs_on_card_matches_cpu(cuda):
+    """The batched RS decoder on the card equals it on the CPU, for
+    RS(120,110) and RS(204,188), with correctable and uncorrectable
+    rows."""
+    from dabtools_tpu_torch.ops.rs import make_rs_decoder
+    from dabtools_tpu_torch.utils.gf256 import rs_parity
+    rng = np.random.default_rng(11)
+    for n, k in ((120, 110), (204, 188)):
+        t = (n - k) // 2
+        data = rng.integers(0, 256, size=(96, k), dtype=np.uint8)
+        cw = np.concatenate([data, rs_parity(data, n - k)], axis=1)
+        for row in range(96):
+            for p in rng.choice(n, size=row % (t + 4), replace=False):
+                cw[row, p] ^= rng.integers(1, 256)
+        dec = make_rs_decoder(n, k)
+        want_data, want_n = dec(torch.from_numpy(cw))
+        got_data, got_n = dec(torch.from_numpy(cw).to(cuda))
+        assert got_data.device.type == got_n.device.type == cuda.type
+        assert torch.equal(got_data.cpu(), want_data)
+        assert torch.equal(got_n.cpu(), want_n)
+        assert (want_n < 0).any() and (want_n == t).any()
+
+
+@pytest.mark.gpu
+def test_timeblock_span_on_card_matches_cpu(cuda):
+    """A 2 x 2 time-block span on the card equals the same span on the
+    CPU (bytes exactly), with one K1 and one K2 launch for the span."""
+    from dabtools_tpu_torch.constants import MODE_I
+    from dabtools_tpu_torch.fic.config import Ensemble, Subchannel
+    from dabtools_tpu_torch.models.receiver import to_host
+    from dabtools_tpu_torch.ops import viterbi_cuda as K
+    from dabtools_tpu_torch.parallel.mesh import make_receiver_mesh
+    from dabtools_tpu_torch.parallel.timeblock import (
+        halo_sizes,
+        timeblock_receiver,
+    )
+    from dabtools_tpu_torch.testsignal import modulate
+    ens = Ensemble(eid=0x4FFF, label="ONE SUBCH",
+                   subchannels=(Subchannel.eep(1, 0, 3, "A", 64),))
+    n_time, f_own, warm = 2, 6, 5
+    g0 = warm + 1
+    x, payload = modulate(ens, g0 + n_time * f_own + 1,
+                          np.random.default_rng(5))
+    fr = MODE_I.frame_size
+    lh, rh = halo_sizes(warm)
+    s0, sl = g0 * fr, n_time * f_own * fr
+    args = [np.ascontiguousarray(np.broadcast_to(a, (2, a.size)))
+            for a in (x[s0:s0 + sl], x[s0 - lh:s0], x[s0 + sl:s0 + sl + rh])]
+
+    def run(dev):
+        fn = timeblock_receiver(
+            make_receiver_mesh(n_channels=2, n_time=n_time,
+                               devices=[dev] * 4),
+            ens, frames_per_shard=f_own, warmup_frames=warm)
+        return to_host(fn(*(torch.from_numpy(a).to(dev) for a in args), g0))
+
+    want = run(torch.device("cpu"))
+    n0 = K.acs4_launches, K.traceback4_launches
+    got = run(cuda)
+    assert (K.acs4_launches - n0[0], K.traceback4_launches - n0[1]) == (1, 1)
+    for key in ("fib_bytes", "prs_offset"):
+        np.testing.assert_array_equal(got[key], want[key])
+    np.testing.assert_array_equal(got["subch"]["1"], want["subch"]["1"])
+    for j in range(n_time * f_own * 4):
+        assert (got["subch"]["1"][0, j].tobytes()
+                == payload[1][g0 * 4 + j - 15].tobytes())

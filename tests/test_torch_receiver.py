@@ -400,7 +400,9 @@ def test_port_imports_no_jax():
     assert "dabtools_tpu_torch.testsignal" in res["names"]
     assert "dabtools_tpu_torch.fic.fig" in res["names"]
     for name in ("ops.tii", "ops.fir", "ops.resample", "parallel.channel",
-                 "cli.dabscan", "frontend.rtlsdr", "tables.bandiii"):
+                 "cli.dabscan", "frontend.rtlsdr", "tables.bandiii",
+                 "ops.rs", "eti.dabplus", "parallel.mesh",
+                 "parallel.timeblock"):
         assert f"dabtools_tpu_torch.{name}" in res["names"]
     assert res["added"] == []
     assert res["ran"] == []
