@@ -89,6 +89,20 @@ of which raises on failure:
    their plain versions at the span's lane batch and timed; ms per span,
    the aggregate real-time multiple and the device operations per span
    beside one cell's ``pre_viterbi``.
+12. span across processes: once the kernels and ``libdabhost.so`` are
+   built, the script starts itself twice (``--span-worker RANK PORT
+   DIR``, by ``subprocess``); both ranks use ``cuda:0`` and join a
+   ``gloo`` group with ``init_multihost`` (NCCL will not put two ranks
+   on one GPU, so the halos travel through host memory).  Phase 11's
+   span with shards 0-1 on rank 0 and 2-3 on rank 1, each rank's input
+   zero outside its own cells: one K1 and one K2 launch per rank, every
+   FIB CRC good, and ``gather_span``'s bytes on both ranks equal to
+   phase 11's output.  The sync-free check is not applied: the gloo
+   exchange copies to the host by design.  Each rank's ms per span and
+   the halo exchange's ms (host clock between barriers), beside phase
+   11's ms and the whole span in one process again in rank 0's fresh
+   process; device operations per rank.  A worker that exits non-zero
+   or outlasts ``SPAN_WORKER_TIMEOUT_S`` fails the run.
 
 Every path starts with all five launch counters at 0 and reads them
 when it ends.  Each phase prints its seconds.  The line before the last
@@ -106,6 +120,7 @@ import contextlib
 import io
 import json
 import pathlib
+import socket
 import statistics
 import subprocess
 import sys
@@ -114,6 +129,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dabtools_tpu_torch import testsignal as S
 from dabtools_tpu_torch.cli import dab2eti, dabscan
@@ -142,12 +158,18 @@ from dabtools_tpu_torch.ops.resample import Resampler
 from dabtools_tpu_torch.ops.rs import make_rs_decoder
 from dabtools_tpu_torch.ops.sync import coarse_null_sync
 from dabtools_tpu_torch.parallel.channel import channel_parallel_block
-from dabtools_tpu_torch.parallel.mesh import make_receiver_mesh
+from dabtools_tpu_torch.parallel.mesh import (
+    gather_span,
+    init_multihost,
+    make_receiver_mesh,
+)
 from dabtools_tpu_torch.parallel.timeblock import (
+    exchange_halos,
     halo_sizes,
     timeblock_receiver,
 )
 from dabtools_tpu_torch.tables.bandiii import BAND_III as BAND
+from dabtools_tpu_torch.utils import native
 from dabtools_tpu_torch.utils.crc import crc16_ok_batch
 from dabtools_tpu_torch.utils.gf256 import rs_decode, rs_encode, rs_parity
 
@@ -180,6 +202,8 @@ RS2_BATCH = 256                 # RS(204,188) codewords
 MIX_FRAMES = 40                 # phase 10: 2 device steps of 16 frames
 TB_FRAMES = 6                   # phase 11: own frames per time shard
 TB_WARMUP = 5                   # warmup frames re-priming each shard
+SPAN_RANKS = 2                  # phase 12: processes sharing the span
+SPAN_WORKER_TIMEOUT_S = 300     # both ranks' whole runs, from the spawn
 FRAME_SIZE = MODE_I.frame_size
 
 # Bounds: NVIDIA H100 SXM data-sheet peaks.
@@ -977,8 +1001,9 @@ def mixed_phase(rng) -> None:
           f"steps")
 
 
-def timeblock_phase(rng, card: str) -> None:
-    """The mixed mux as a 2 x 4 time-block span on one card."""
+def timeblock_phase(rng, card: str) -> dict:
+    """The mixed mux as a 2 x 4 time-block span on one card; returns the
+    span's inputs, its output on the host and its ms per span."""
     mix = S.mixed_ensemble()
     n_ch, n_time, f_own, warm = 2, 4, TB_FRAMES, TB_WARMUP
     g0 = warm + 1
@@ -1132,11 +1157,205 @@ def timeblock_phase(rng, card: str) -> None:
     print(f"device operations per span: {_device_ops(run)} "
           f"(torch.profiler); one cell's pre_viterbi: {one}, x "
           f"{n_ch * n_time} cells")
+    return {"inputs": {"span": span.cpu().numpy(),
+                       "prefix": prefix.cpu().numpy(),
+                       "suffix": suffix.cpu().numpy(), "g0": g0},
+            "out": out, "ms": ms}
 
 
-def main() -> int:
+def _flat(tree: dict, prefix: str = "") -> dict:
+    """A nested dict of arrays -> one level, keyed by path (``subch/1``)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def multiprocess_phase(tb: dict, card: str) -> None:
+    """Phase 11's span on two processes of one card: shards 0-1 on rank
+    0, 2-3 on rank 1, each rank a ``--span-worker`` run of this script.
+    Their gathered bytes must equal phase 11's."""
+    # The workers load the kernels and libdabhost.so that this process
+    # built: nothing may build them again (utils/native.py builds with
+    # make in any process that finds no library).
+    K.build()
+    if native.lib() is None:
+        raise AssertionError("libdabhost.so is not built")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        np.savez(tmp / "span.npz", **tb["inputs"])
+        port = str(_free_port())
+        procs = [subprocess.Popen(
+            [sys.executable, str(pathlib.Path(__file__).resolve()),
+             "--span-worker", str(rank), port, str(tmp)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for rank in range(SPAN_RANKS)]
+        deadline = time.monotonic() + SPAN_WORKER_TIMEOUT_S
+        try:
+            logs = [p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0]
+                for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for rank, (p, log) in enumerate(zip(procs, logs)):
+            for line in log.splitlines():
+                print(f"  rank {rank}: {line}")
+            if p.returncode:
+                raise AssertionError(f"span worker {rank} exited "
+                                     f"{p.returncode}")
+        want = _flat(tb["out"])
+        res = []
+        for rank in range(SPAN_RANKS):
+            got = np.load(tmp / f"rank{rank}.npz")
+            differ = sorted(k for k in set(want) | set(got.files)
+                            if k not in want or k not in got.files
+                            or got[k].dtype != want[k].dtype
+                            or got[k].shape != want[k].shape
+                            or got[k].tobytes() != want[k].tobytes())
+            if differ:
+                raise AssertionError(f"rank {rank}: gathered span differs "
+                                     f"from phase 11's in {differ}")
+            res.append(json.loads((tmp / f"rank{rank}.json").read_text()))
+    print(f"span across processes: both ranks' gather_span equals phase "
+          f"11's one-process output byte for byte ({len(want)} leaves)")
+    span_ms = ", ".join(f"{r['span_ms']:.2f}" for r in res)
+    halo_ms = ", ".join(f"{r['halo_ms']:.2f}" for r in res)
+    worst = max(r["span_ms"] for r in res)
+    print(f"span across processes: {worst:.2f} ms per span on "
+          f"{SPAN_RANKS} processes (the slower rank; ranks {span_ms}) "
+          f"against {tb['ms']:.2f} ms in one process (phase 11, this "
+          f"call); the halo exchange alone {halo_ms} ms (host clock "
+          f"between barriers, median of 5 after a warm-up; gloo through "
+          f"host memory, both ranks on cuda:0) on {card}")
+    print(f"span across processes: the whole span in one process again, "
+          f"in rank 0's fresh process (rank 1 waiting): "
+          f"{res[0]['one_ms']:.2f} ms; 2 processes / 1 = "
+          f"{worst / res[0]['one_ms']:.3f} (same clock and statistic)")
+    for r in res:
+        print(f"span across processes: rank {r['rank']} cells "
+              f"{r['cells']}, launches {r['launches']}, device operations "
+              f"per span {r['device_ops']} (torch.profiler); halo bytes "
+              f"sent {r['halo_sent']}, received {r['halo_received']}")
+
+
+def span_worker(rank: int, port: str, tmp: pathlib.Path) -> None:
+    """One rank of phase 12 (``--span-worker RANK PORT DIR``)."""
+    torch.cuda.set_device(0)
+    # NCCL does not put two ranks on one GPU, so on a one-card machine
+    # the halos travel through host memory under gloo.
+    init_multihost(f"127.0.0.1:{port}", SPAN_RANKS, rank, backend="gloo")
+    K.build()
+    data = np.load(tmp / "span.npz")
+    mix = S.mixed_ensemble()
+    n_ch, n_time = data["span"].shape[0], 4
+    cuda = torch.device("cuda", 0)
+    mesh = make_receiver_mesh(
+        n_channels=n_ch, n_time=n_time,
+        devices=[(i // 2, cuda) for _ in range(n_ch) for i in range(n_time)])
+    span, prefix, suffix = (data[k].copy() for k in ("span", "prefix",
+                                                     "suffix"))
+    shard = TB_FRAMES * FRAME_SIZE
+    for c in range(n_ch):
+        for i in range(n_time):
+            if mesh.ranks[c][i] != rank:
+                span[c, i * shard:(i + 1) * shard] = 0
+        if mesh.ranks[c][0] != rank:
+            prefix[c] = 0
+        if mesh.ranks[c][-1] != rank:
+            suffix[c] = 0
+    span, prefix, suffix = (torch.from_numpy(a).to(cuda)
+                            for a in (span, prefix, suffix))
+    g0 = int(data["g0"])
+    fn = timeblock_receiver(mesh, mix, frames_per_shard=TB_FRAMES,
+                            warmup_frames=TB_WARMUP)
+
+    def run():
+        return fn(span, prefix, suffix, g0)
+
+    _reset_counts()
+    out = run()
+    torch.cuda.synchronize()
+    launches = _counts()
+    if (launches["acs4"], launches["traceback4"]) != (1, 1):
+        raise AssertionError(f"rank {rank}: the span is not one K1 and one "
+                             f"K2 launch: {launches}")
+    got = to_host(gather_span(out, mesh))
+    if not crc16_ok_batch(got["fib_bytes"].reshape(-1, 32)).all():
+        raise AssertionError(f"rank {rank}: FIB CRC failures in the span")
+    np.savez(tmp / f"rank{rank}.npz", **_flat(got))
+    print(f"launches {launches}; every FIB CRC of the gathered span good")
+    print("the sync-free check is not applied here: the gloo halo "
+          "exchange copies to the host by design")
+
+    lh, rh = halo_sizes(TB_WARMUP)
+
+    def between_barriers(fn) -> float:
+        walls = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            dist.barrier()
+            walls.append(time.perf_counter() - t0)
+        return statistics.median(walls[1:]) * 1e3
+
+    halo_ms = between_barriers(lambda: exchange_halos(
+        mesh, span, prefix, suffix, shard, lh, rh))
+    span_ms = between_barriers(lambda: to_host(run()))
+    ops = _device_ops(run)
+    # The whole span in one process again, timed as phase 11 times it but
+    # in this fresh process (rank 1 waits): the parent has run ten phases
+    # before phase 11.
+    one_ms = None
+    if rank == 0:
+        whole = [torch.from_numpy(data[k]).to(cuda)
+                 for k in ("span", "prefix", "suffix")]
+        # every cell named rank 0's: a plain device list would be this
+        # rank's share of a mesh gathered from both ranks
+        one = timeblock_receiver(
+            make_receiver_mesh(n_channels=n_ch, n_time=n_time,
+                               devices=[(0, cuda)] * (n_ch * n_time)),
+            mix, frames_per_shard=TB_FRAMES, warmup_frames=TB_WARMUP)
+        walls = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            to_host(one(*whole, g0))
+            walls.append(time.perf_counter() - t0)
+        one_ms = statistics.median(walls[1:]) * 1e3
+    dist.barrier()
+    # across the one boundary between the ranks, rank 0 sends shard 2's
+    # left halo and rank 1 shard 1's right halo, for each channel
+    sent, received = ((lh, rh) if rank == 0 else (rh, lh))
+    (tmp / f"rank{rank}.json").write_text(json.dumps({
+        "rank": rank, "cells": sorted(out), "launches": launches,
+        "span_ms": span_ms, "halo_ms": halo_ms, "one_ms": one_ms,
+        "device_ops": ops,
+        "halo_sent": n_ch * sent * span.element_size(),
+        "halo_received": n_ch * received * span.element_size()}))
+    dist.destroy_process_group()
+
+
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    if argv[:1] == ["--span-worker"]:
+        span_worker(int(argv[1]), argv[2], pathlib.Path(argv[3]))
+        return 0
     card = device_phase()
     t_start = time.perf_counter()
     build_phase()
@@ -1162,7 +1381,8 @@ def main() -> int:
     phase("channel batch", channel_batch_phase, rng, card)
     phase("RS", rs_phase, rng, card)
     phase("mixed mux", mixed_phase, rng)
-    phase("time-block span", timeblock_phase, rng, card)
+    tb = phase("time-block span", timeblock_phase, rng, card)
+    phase("span across processes", multiprocess_phase, tb, card)
     print(f"all phases: {time.perf_counter() - t_start:.1f} s (build "
           f"included)")
     # Each kernel's launches come from the path that drives it: K1/K2 from
@@ -1193,4 +1413,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

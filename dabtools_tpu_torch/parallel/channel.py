@@ -7,7 +7,9 @@ MSC codewords go to the Viterbi as ONE ragged dispatch per device: the
 channel axis is flattened into the lane axis, so K1 and K2 launch once
 per batched block and device whatever the channel count.  With a
 ``mesh``, each stream runs on its channel row's device, as the JAX
-``mesh=`` places it.
+``mesh=`` places it; on a mesh whose rows span processes, each process
+runs the streams of its own rows, with no communication (the JAX
+``NamedSharding`` over ``channels``).
 """
 
 from __future__ import annotations
@@ -60,14 +62,24 @@ def channel_parallel_block(x, rings, cif_count, *,
     ``rings={}`` is the FIC-only pass.  With ``mesh``, the streams split
     over its channel rows as a sharding over ``channels`` splits them
     (:meth:`ReceiverMesh.rows_of`) and each runs on its row's device.
+    On a mesh whose rows span processes, every rank calls this with the
+    whole batch and decodes the streams of the rows it owns (a row is
+    its first cell's); ``out`` and the rings are then ``{(stream, 0):
+    stream dict}`` on the rows' devices, which
+    :func:`~dabtools_tpu_torch.parallel.mesh.gather_span` stacks.
     """
     n = x.shape[0]
-    devices = ([x.device] * n if mesh is None else
-               [mesh.devices[r][0] for r in mesh.rows_of(n)])
+    streams = list(range(n))
+    devices = [x.device] * n
+    if mesh is not None:
+        rows = mesh.rows_of(n)
+        rank = mesh.process_rank()
+        streams = [c for c in streams if mesh.ranks[rows[c]][0] == rank]
+        devices = [mesh.devices[rows[c]][0] for c in streams]
     offsets: dict = {}
     outs, new_rings, jobs = [], [], []
     groups: dict = {}
-    for c, dev in enumerate(devices):
+    for c, dev in zip(streams, devices):
         xc = x[c].to(dev)
         if dev not in offsets:
             offsets[dev] = torch.arange(n_frames, dtype=torch.int32,
@@ -84,5 +96,8 @@ def channel_parallel_block(x, rings, cif_count, *,
         jobs.append(job)
     for out, dec in zip(outs, decode_by_device(devices, jobs)):
         post_viterbi(out, groups, dec, n_frames, mode)
-    return (_stack(outs, x.device), _stack(new_rings, x.device),
-            cif_count + n_frames * mode.n_cifs)
+    new_cif = cif_count + n_frames * mode.n_cifs
+    if len(streams) < n:
+        return ({(c, 0): o for c, o in zip(streams, outs)},
+                {(c, 0): r for c, r in zip(streams, new_rings)}, new_cif)
+    return _stack(outs, x.device), _stack(new_rings, x.device), new_cif

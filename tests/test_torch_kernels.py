@@ -414,3 +414,52 @@ def test_timeblock_span_on_card_matches_cpu(cuda):
     for j in range(n_time * f_own * 4):
         assert (got["subch"]["1"][0, j].tobytes()
                 == payload[1][g0 * 4 + j - 15].tobytes())
+
+
+@pytest.mark.gpu
+def test_span_across_two_processes_on_card(cuda, tmp_path):
+    """A 2 x 4 span with shards 0-1 on rank 0 and 2-3 on rank 1, both
+    ranks on ``cuda:0`` and their halos sent through ``gloo``: each
+    rank's gathered span equals the one-process span on the card byte
+    for byte, and each rank launched K1 and K2 once."""
+    from dabtools_tpu_torch.constants import MODE_I
+    from dabtools_tpu_torch.fic.config import Ensemble, Subchannel
+    from dabtools_tpu_torch.models.receiver import to_host
+    from dabtools_tpu_torch.ops import viterbi_cuda as K
+    from dabtools_tpu_torch.parallel.mesh import make_receiver_mesh
+    from dabtools_tpu_torch.parallel.timeblock import (
+        halo_sizes,
+        timeblock_receiver,
+    )
+    from dabtools_tpu_torch.testsignal import modulate
+    # pytest puts tests/ on sys.path; a package named ``tests`` may
+    # shadow the repo's directory of that name
+    from torch_distributed_worker import launch
+    K.build()                   # once, before the ranks load it
+    ens = Ensemble(eid=0x4FFF, label="ONE SUBCH",
+                   subchannels=(Subchannel.eep(1, 0, 3, "A", 64),))
+    n_time, f_own, warm = 4, 6, 5
+    g0 = warm + 1
+    x, _ = modulate(ens, g0 + n_time * f_own + 1, np.random.default_rng(5))
+    fr = MODE_I.frame_size
+    lh, rh = halo_sizes(warm)
+    s0, sl = g0 * fr, n_time * f_own * fr
+    span, prefix, suffix = (
+        np.ascontiguousarray(np.broadcast_to(a, (2, a.size)))
+        for a in (x[s0:s0 + sl], x[s0 - lh:s0], x[s0 + sl:s0 + sl + rh]))
+    fn = timeblock_receiver(
+        make_receiver_mesh(n_channels=2, n_time=n_time, devices=[cuda] * 8),
+        ens, frames_per_shard=f_own, warmup_frames=warm)
+    want = to_host(fn(*(torch.from_numpy(a).to(cuda)
+                        for a in (span, prefix, suffix)), g0))
+    ranks = launch(tmp_path, "span_split", ens, device="cuda:0", x=span,
+                   prefix=prefix, suffix=suffix, g0=g0, f_own=f_own,
+                   warmup=warm)
+    for res, info in ranks:
+        assert info["launches"] == [1, 1]
+        got = res["out"]
+        for key in ("fib_bytes", "fic_metric", "prs_peak", "prs_offset",
+                    "cfo_carriers"):
+            assert got[key].tobytes() == want[key].tobytes(), key
+        for key in ("subch", "subch_metric"):
+            assert got[key]["1"].tobytes() == want[key]["1"].tobytes(), key

@@ -365,7 +365,7 @@ before = jaxmods()
 import dabtools_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(dabtools_tpu_torch.__path__,
                                                "dabtools_tpu_torch.")]
-for name in names + ["chip_smoke"]:
+for name in names + ["chip_smoke", "tests.torch_distributed_worker"]:
     importlib.import_module(name)
 imported = jaxmods() - before
 # the smoke's host-side signal path, run on a small signal and on the CPU
@@ -386,10 +386,11 @@ print(json.dumps({"added": sorted(imported), "names": names,
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port (and chip_smoke.py), and then
-    running the smoke's host-side signal helpers, adds no ``jax`` module
-    and no module of the JAX package at all: the port runs on its own
-    copies of the host modules."""
+    """Importing every module of the port, chip_smoke.py and the
+    two-process tests' worker, and then running the smoke's host-side
+    signal helpers, adds no ``jax`` module and no module of the JAX
+    package at all: the port runs on its own copies of the host
+    modules."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     r = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300,
