@@ -103,6 +103,25 @@ of which raises on failure:
    11's ms and the whole span in one process again in rank 0's fresh
    process; device operations per rank.  A worker that exits non-zero
    or outlasts ``SPAN_WORKER_TIMEOUT_S`` fails the run.
+13. lab chain: the everything-mux of ``tests/test_everything_mux.py``
+   (MP2 64 kbit/s with DLS and DL Plus, DAB+ 72 kbit/s, a 32 kbit/s FEC
+   packet service carrying a 700-byte MOT object, language/PTy, linkage,
+   FI, OE and time) through the port's commands only, in this process
+   (``testsignal.lab_chain``): ``dabmux --cifs 100`` -> ``eti2iq
+   --format u8 --snr 16 --cfo-hz 420`` -> ``dab2eti --format u8`` on
+   the card (16-frame blocks) -> ``etiinfo``, ``eti2audio --all`` and
+   ``eti2audio --sid 0x1111 --labels``.  Every off-air ETI frame's CRCs
+   good and sub-channels 1-3 equal to the dabmux ETI's from the
+   activation CIF on, FIG 0/14 through, ``epg.bin`` the object byte for
+   byte beside an ``.mp2`` and an ``.aac`` file, the DLS, DL Plus and
+   ``etiinfo`` metadata lines; K1 and K2 launch once per device step of
+   ``dab2eti``'s receiver.  ``dab2eti``'s seconds and real-time multiple
+   (host clock, file to file).
+14. BER waterfall: ``tools/torch_ber_sweep.py``'s ``run_point`` on the
+   card at 3, 4, 5, 6 and 8 dB SNR (AWGN) x 2 seeds x 12 frames of the
+   closed-loop ensemble (EEP 3-A 64 kbit/s): acquisition and a frame
+   decode rate of 1.0 at 6 and 8 dB for every seed; the curve on a line
+   of its own beside the card's name and power limit.
 
 Every path starts with all five launch counters at 0 and reads them
 when it ends.  Each phase prints its seconds.  The line before the last
@@ -116,8 +135,7 @@ prints no result.
 
 from __future__ import annotations
 
-import contextlib
-import io
+import importlib.util
 import json
 import pathlib
 import socket
@@ -204,6 +222,10 @@ TB_FRAMES = 6                   # phase 11: own frames per time shard
 TB_WARMUP = 5                   # warmup frames re-priming each shard
 SPAN_RANKS = 2                  # phase 12: processes sharing the span
 SPAN_WORKER_TIMEOUT_S = 300     # both ranks' whole runs, from the spawn
+BER_SNRS = (3.0, 4.0, 5.0, 6.0, 8.0)  # phase 14: the waterfall's points
+BER_CLEAN_SNRS = (6.0, 8.0)     # ... where every frame must decode
+BER_SEEDS = 2
+BER_FRAMES = 12
 FRAME_SIZE = MODE_I.frame_size
 
 # Bounds: NVIDIA H100 SXM data-sheet peaks.
@@ -690,13 +712,6 @@ def _channelizer_rate(x: np.ndarray, method: str) -> tuple[np.ndarray, float]:
     return y, x.size / (time.perf_counter() - t0) / 1e6
 
 
-def _run_cli(main_fn, argv: list[str]) -> tuple[int, list[str]]:
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        rc = main_fn(argv)
-    return rc, out.getvalue().splitlines()
-
-
 def wideband_phase(rng, card: str) -> None:
     """A 4-block capture through the channelizer (both methods),
     ``dab2eti --wideband`` and ``dabscan``."""
@@ -730,13 +745,11 @@ def wideband_phase(rng, card: str) -> None:
         quantize_u8(wide).tofile(cap)
         outdir = pathlib.Path(tmp) / "eti"
         t0 = time.perf_counter()
-        rc, _ = _run_cli(dab2eti.main, [
+        S.run_cli(dab2eti.main, [
             "--torch-device", "cuda", "--format", "u8", "--wideband",
             str(WB_CENTER), "--rate", str(WB_RATE), str(cap), "-o",
             str(outdir)])
         dt = time.perf_counter() - t0
-        if rc != 0:
-            raise AssertionError(f"dab2eti --wideband exited {rc}")
         for block, pl in payloads.items():
             raw = (outdir / f"{block}.eti").read_bytes()
             frames = [raw[k:k + 6144] for k in range(0, len(raw), 6144)]
@@ -755,15 +768,16 @@ def wideband_phase(rng, card: str) -> None:
         scan = ["--torch-device", "cuda", "--format", "u8", "--center",
                 str(WB_CENTER), "--rate", str(WB_RATE), str(cap)]
         _reset_counts()
-        rc, lines = _run_cli(dabscan.main, ["--json", *scan])
+        out, _ = S.run_cli(dabscan.main, ["--json", *scan])
         launches = _counts()
+        lines = out.splitlines()
         recs = {r["block"]: r for r in map(json.loads, lines)}
         print("dabscan --json: " + ", ".join(
             f"{b} {r.get('eid', '--')} {r.get('label', '')}".strip()
             for b, r in sorted(recs.items())))
         print(f"dabscan launches: {launches}")
-        if rc != 0 or set(recs) != {"6A", "6B", "6C", "6D"}:
-            raise AssertionError(f"dabscan: rc {rc}, blocks {sorted(recs)}")
+        if set(recs) != {"6A", "6B", "6C", "6D"}:
+            raise AssertionError(f"dabscan: blocks {sorted(recs)}")
         for block, (eid, label) in WB_MUXES.items():
             if (recs[block].get("eid"), recs[block].get("label")) != (
                     f"0x{eid:04X}", label):
@@ -773,10 +787,10 @@ def wideband_phase(rng, card: str) -> None:
         if (launches["acs4"], launches["traceback4"]) != (1, 1):
             raise AssertionError("dabscan's FIC pass is not one K1 and one "
                                  "K2 launch")
-        rc, lines = _run_cli(dabscan.main, scan)
+        lines = S.run_cli(dabscan.main, scan)[0].splitlines()
         b_line = next(line for line in lines if line.startswith("6B"))
         print(f"dabscan: {' | '.join(lines)}")
-        if rc != 0 or "--" not in b_line:
+        if "--" not in b_line:
             raise AssertionError("dabscan text output")
 
 
@@ -1350,6 +1364,63 @@ def span_worker(rank: int, port: str, tmp: pathlib.Path) -> None:
     dist.destroy_process_group()
 
 
+def lab_chain_phase(card: str) -> None:
+    """The everything-mux's lab chain through the port's commands, with
+    ``dab2eti`` on the card."""
+    with tempfile.TemporaryDirectory() as tmp:
+        _reset_counts()
+        res = S.lab_chain(pathlib.Path(tmp), "cuda")
+        launches = _counts()
+    print(f"lab chain: dabmux -> eti2iq -> dab2eti (cuda) -> etiinfo, "
+          f"eti2audio: {res['frames']} off-air ETI frames, sub-channels "
+          f"1-3 equal to the dabmux ETI's; FIG 0/14, epg.bin, .mp2, .aac, "
+          f"DLS, DL Plus and the etiinfo metadata all through")
+    for name in ("acs4", "traceback4"):
+        if launches[name] != res["device_steps"]:
+            raise AssertionError(f"{name} launched {launches[name]} times "
+                                 f"in {res['device_steps']} device steps")
+    print(f"lab chain launches: {launches} in {res['device_steps']} device "
+          f"steps")
+    print(f"lab chain: dab2eti {res['dab2eti_s']:.3f} s for a capture "
+          f"of {res['air_s']:.3f} s of air = "
+          f"{res['air_s'] / res['dab2eti_s']:.2f}x real time (host clock, "
+          f"u8 file to ETI file, the receiver's set-up and acquisition "
+          f"included; {res['frames']} ETI frames out, the capture's last "
+          f"partial block undecoded) on {card}")
+
+
+def ber_phase(card: str) -> None:
+    """The decode-rate waterfall of the closed-loop ensemble on the
+    card."""
+    # by its path: an installed package named ``tools`` would shadow the
+    # repo's directory, which has no ``__init__.py``
+    path = pathlib.Path(__file__).resolve().parent / "tools" / \
+        "torch_ber_sweep.py"
+    spec = importlib.util.spec_from_file_location("torch_ber_sweep", path)
+    sweep = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sweep)
+    recs = []
+    for snr in BER_SNRS:
+        for seed in range(BER_SEEDS):
+            rec = sweep.run_point(snr, 0.0, BER_FRAMES, seed, device="cuda")
+            recs.append(rec)
+            print(f"BER waterfall: SNR {snr:g} dB seed {seed}: "
+                  f"acquired {rec['acquired']}, FIB CRC rate "
+                  f"{rec['fib_crc_rate']:.3f}, {rec['eti_frames']} ETI "
+                  f"frames, frame decode rate "
+                  f"{rec['frame_decode_rate']:.3f}, {rec['wall_s']} s")
+    rate = {snr: np.mean([r["frame_decode_rate"] for r in recs
+                          if r["snr_db"] == snr]) for snr in BER_SNRS}
+    curve = " ".join(f"{snr:g}dB={rate[snr]:.3f}" for snr in BER_SNRS)
+    print(f"BER waterfall (frame decode rate, mean of {BER_SEEDS} seeds x "
+          f"{BER_FRAMES} frames; AWGN, EEP 3-A 64 kbit/s, "
+          f"tools/torch_ber_sweep.py): {curve} on {card}")
+    for r in recs:
+        if r["snr_db"] in BER_CLEAN_SNRS and not (
+                r["acquired"] and r["frame_decode_rate"] == 1.0):
+            raise AssertionError(f"BER waterfall: {r}")
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -1383,6 +1454,8 @@ def main(argv: list[str]) -> int:
     phase("mixed mux", mixed_phase, rng)
     tb = phase("time-block span", timeblock_phase, rng, card)
     phase("span across processes", multiprocess_phase, tb, card)
+    phase("lab chain", lab_chain_phase, card)
+    phase("BER waterfall", ber_phase, card)
     print(f"all phases: {time.perf_counter() - t_start:.1f} s (build "
           f"included)")
     # Each kernel's launches come from the path that drives it: K1/K2 from

@@ -17,6 +17,7 @@ only on the rank that owns its cell.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 
 import torch
@@ -93,6 +94,14 @@ def init_multihost(coordinator: str | None = None,
     spans the processes.  ``backend`` is the caller's: ``"nccl"`` moves
     halos between the cells' CUDA devices, ``"gloo"`` through host
     memory (NCCL does not put two ranks on one GPU).
+
+    The group is destroyed at interpreter exit unless the caller has done
+    so, as the JAX client shuts down at exit: a process that exits with
+    the group alive can abort in C++ (``terminate called without an
+    active exception``) while the interpreter tears down the group's
+    threads.  A caller whose ranks must not leave before each other ends
+    with ``dist.barrier()`` and ``dist.destroy_process_group()`` itself;
+    the exit hook has no barrier, which would hang on a dead peer.
     """
     if num_processes is None or num_processes <= 1:
         return
@@ -104,6 +113,15 @@ def init_multihost(coordinator: str | None = None,
                          f"this process's process_id")
     dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
                             world_size=num_processes, rank=process_id)
+    atexit.unregister(_destroy_group)
+    atexit.register(_destroy_group)
+
+
+def _destroy_group() -> None:
+    """``init_multihost``'s exit hook: destroy the process group if it is
+    still alive."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def make_receiver_mesh(n_channels: int | None = None,

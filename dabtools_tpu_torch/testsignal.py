@@ -1,8 +1,9 @@
 """Known-answer signals for exercising the port: the flagship mux as
 impaired u8 IQ (optionally with TII), at another sample rate, or several
-such muxes in one wideband Band III capture; the mixed mux (EEP, UEP and
-a DAB+ sub-channel of real superframes); and coded Viterbi lanes with
-their messages.
+such muxes in one wideband Band III capture; the closed-loop ensemble of
+the BER sweep; the mixed mux (EEP, UEP and a DAB+ sub-channel of real
+superframes); the everything-mux's configuration for the port's
+``dabmux``; and coded Viterbi lanes with their messages.
 
 Host-side NumPy, built on the port's copies of the transmitter modules
 (``mod.modulator``, ``mod.impairments``, ``mod.convcode``, ``fic``,
@@ -12,6 +13,13 @@ the on-card tests.
 """
 
 from __future__ import annotations
+
+import contextlib
+import io
+import json
+import logging
+import pathlib
+import time
 
 import numpy as np
 import torch
@@ -51,6 +59,21 @@ def flagship_ensemble(eid: int = 0x4FFF,
             ServiceComponent(tmid=0, subchid=i),))
         for i in range(9))
     return Ensemble(eid=eid, subchannels=subs, services=svcs, label=label)
+
+
+def closed_loop_ensemble() -> Ensemble:
+    """The JAX package's closed-loop ensemble (``build_ensemble`` of
+    ``tests/test_closed_loop.py``), the BER sweep's: one EEP 3-A 64
+    kbit/s sub-channel.  ``modulate(closed_loop_ensemble(), n,
+    np.random.default_rng(seed))`` gives that test's ``modulate(ens, n,
+    seed=seed)``: the same payload draws, the same samples."""
+    return Ensemble(
+        eid=0x4FFF,
+        label="TPU DAB",
+        subchannels=(Subchannel.eep(1, 0, 3, "A", 64),),
+        services=(Service(sid=0x1234, label="SVC ONE", components=(
+            ServiceComponent(tmid=0, subchid=1, ascty=0),)),),
+    )
 
 
 MIXED_DABPLUS = 7               # the mixed mux's DAB+ sub-channel
@@ -230,3 +253,179 @@ def check_eti_payloads(eti: list[bytes], payloads: dict,
                 raise AssertionError(f"subch {sc} payload differs at CIF "
                                      f"{first_cif + k}")
     return len(frames)
+
+
+# ------------------------------------------------------------ lab chain
+EVERYTHING_OBJECT_SEED = 42     # the MOT object's bytes: default_rng(42)
+EVERYTHING_OBJECT_BYTES = 700
+LAB_CIFS = 100                  # the lab chain's mux, as the JAX test's
+LAB_BLOCK_FRAMES = 16           # dab2eti's block in the lab chain
+# etiinfo's lines, and eti2audio --labels', that the everything-mux's
+# metadata must give off air (tests/test_everything_mux.py)
+EVERYTHING_INFO = ("PTy Pop Music", "English", "German",
+                   "linkage set 0x0AA", "DAB ensemble 0xE7E7 -> 225.648 MHz",
+                   "service 0x1111 also in ensemble(s): 0xBEEF",
+                   "FEC RS(204,188)", "time 2026-01-01")
+EVERYTHING_LABELS = ("dynamic label: 'Blur - Song 2'", "ITEM.ARTIST='Blur'")
+
+
+def everything_object() -> bytes:
+    """The everything-mux's MOT object: 700 random bytes."""
+    return np.random.default_rng(EVERYTHING_OBJECT_SEED).integers(
+        0, 256, EVERYTHING_OBJECT_BYTES, dtype=np.uint8).tobytes()
+
+
+def everything_mux(obj_path) -> dict:
+    """The ``dabmux`` configuration of the everything-mux
+    (``tests/test_everything_mux.py``): MP2 64 kbit/s with DLS and DL
+    Plus, DAB+ 72 kbit/s and a 32 kbit/s FEC packet service carrying the
+    MOT object at ``obj_path``, with language/PTy, linkage, frequency
+    information, OE and time."""
+    return {
+        "eid": "0xE7E7", "label": "EVERYTHING", "time": True,
+        "frequency_info": [
+            {"id": "0xE7E7", "frequencies_hz": [225648000]}],
+        "linkage": [{"lsn": "0x0AA", "ids": ["0x1111"], "idlq": 0}],
+        "services": [
+            {"sid": "0x1111", "label": "POPPLUS", "type": "mp2",
+             "subch": {"id": 1, "start_cu": 0, "protection": "EEP-3A",
+                       "bitrate": 64},
+             "source": "prbs", "dls": "Blur - Song 2",
+             "dlplus": {"artist": "Blur", "title": "Song 2"},
+             "language": 9, "pty": 10,
+             "also_in_ensembles": ["0xBEEF"]},
+            {"sid": "0x2222", "label": "NEWSAAC", "type": "dab+",
+             "subch": {"id": 2, "start_cu": 48, "protection": "EEP-3A",
+                       "bitrate": 72}, "source": "prbs"},
+            {"sid": "0xE1C00077", "label": "EPGDATA", "type": "packet",
+             "subch": {"id": 3, "start_cu": 102, "protection": "EEP-3A",
+                       "bitrate": 32},
+             "scid": 5, "address": 17, "objects": [str(obj_path)],
+             "fec": True, "language": 8},
+        ],
+    }
+
+
+class _Messages(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines: list[str] = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def run_cli(main, argv: list[str]) -> tuple[str, list[str]]:
+    """``main(argv)`` of one of the port's commands, in this process:
+    (its standard output, the messages it logged at INFO and above).
+    Raises AssertionError if it returns non-zero."""
+    root = logging.getLogger()
+    grab, level = _Messages(), root.level
+    root.addHandler(grab)
+    root.setLevel(logging.INFO)
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = main(argv)
+    finally:
+        root.removeHandler(grab)
+        root.setLevel(level)
+    if rc:
+        raise AssertionError(f"{main.__module__} {argv} exited {rc}: "
+                             f"{grab.lines[-3:]}")
+    return out.getvalue(), grab.lines
+
+
+def lab_chain(tmp: pathlib.Path, torch_device: str) -> dict:
+    """The repo's lab chain on the everything-mux, through the port's
+    commands only, in this process and in ``tmp``: ``dabmux --cifs
+    LAB_CIFS`` -> ``eti2iq --format u8 --snr 16 --cfo-hz 420`` ->
+    ``dab2eti --format u8`` on ``torch_device`` (``LAB_BLOCK_FRAMES``-frame
+    blocks) -> ``etiinfo``, ``eti2audio --all`` and ``eti2audio --sid
+    0x1111 --labels``.
+
+    Raises AssertionError unless every off-air ETI frame has good header
+    and MST CRCs and carries sub-channels 1-3 of the dabmux ETI from the
+    receiver's activation CIF on, FIG 0/14 came through, ``epg.bin`` is
+    the MOT object byte for byte beside an ``.mp2`` and an ``.aac`` file,
+    and the DLS, DL Plus and ``etiinfo`` metadata lines appear.  Returns
+    the off-air frame count, the device steps of ``dab2eti``'s receiver,
+    its seconds (host clock, file to file) and the air time of the
+    capture in seconds."""
+    from dabtools_tpu_torch.cli import (
+        dab2eti,
+        dabmux,
+        eti2audio,
+        eti2iq,
+        etiinfo,
+    )
+    obj = tmp / "epg.bin"
+    obj.write_bytes(everything_object())
+    cfg = tmp / "mux.json"
+    cfg.write_text(json.dumps(everything_mux(obj)))
+    eti, iq, offair = tmp / "mux.eti", tmp / "mux.u8", tmp / "offair.eti"
+    run_cli(dabmux.main, [str(cfg), "--cifs", str(LAB_CIFS), "-o",
+                          str(eti)])
+    run_cli(eti2iq.main, ["--format", "u8", "--snr", "16", "--cfo-hz",
+                          "420", str(eti), "-o", str(iq)])
+
+    # the receiver the command builds, kept to read its activation CIF
+    # and device steps
+    receivers = []
+    real = dab2eti.DabReceiver
+
+    def recorded(*args, **kwargs):
+        receivers.append(real(*args, **kwargs))
+        return receivers[-1]
+
+    dab2eti.DabReceiver = recorded
+    try:
+        t0 = time.perf_counter()
+        run_cli(dab2eti.main, [
+            "--torch-device", torch_device, "--format", "u8",
+            "--frames-per-block", str(LAB_BLOCK_FRAMES), str(iq), "-o",
+            str(offair)])
+        seconds = time.perf_counter() - t0
+    finally:
+        dab2eti.DabReceiver = real
+    rx, = receivers
+    if rx.ensemble is None or rx.ensemble.eid != 0xE7E7:
+        raise AssertionError("dab2eti: no or a wrong ensemble")
+    if rx.ensemble.fec_scheme(3) != 1:
+        raise AssertionError("FIG 0/14 (packet FEC) did not come through")
+    src = list(EtiParser().feed(eti.read_bytes()))
+    got = list(EtiParser().feed(offair.read_bytes()))
+    a = rx._activation_cif
+    if not got or a + len(got) > len(src):
+        raise AssertionError(f"{len(got)} off-air ETI frames from CIF {a} "
+                             f"of {len(src)}")
+    for k, f in enumerate(got):
+        if not (f.header_crc_ok and f.mst_crc_ok):
+            raise AssertionError(f"off-air ETI frame {k} CRC")
+        for sc in (1, 2, 3):
+            if f.subchannel_data(sc) != src[a + k].subchannel_data(sc):
+                raise AssertionError(f"subch {sc} differs at off-air frame "
+                                     f"{k} (CIF {a + k})")
+
+    info, _ = run_cli(etiinfo.main, [str(offair)])
+    missing = [s for s in EVERYTHING_INFO if s not in info]
+    if missing:
+        raise AssertionError(f"etiinfo lacks {missing}")
+    run_cli(eti2audio.main, ["--all", str(tmp / "all"), str(offair)])
+    files = {p.name: p for p in (tmp / "all").rglob("*") if p.is_file()}
+    if not (any(n.endswith(".mp2") for n in files)
+            and any(n.endswith(".aac") for n in files)):
+        raise AssertionError(f"eti2audio --all wrote {sorted(files)}")
+    if ("epg.bin" not in files
+            or files["epg.bin"].read_bytes() != everything_object()):
+        raise AssertionError("epg.bin is not the MOT object")
+    _, labels = run_cli(eti2audio.main, [
+        "--sid", "0x1111", "--labels", str(offair), "-o",
+        str(tmp / "pop.mp2")])
+    missing = [s for s in EVERYTHING_LABELS
+               if not any(s in line for line in labels)]
+    if missing:
+        raise AssertionError(f"eti2audio --labels lacks {missing}")
+    return {"frames": len(got), "device_steps": rx.device_steps,
+            "dab2eti_s": seconds,
+            "air_s": iq.stat().st_size / 2 / C.SAMPLE_RATE}

@@ -365,7 +365,8 @@ before = jaxmods()
 import dabtools_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(dabtools_tpu_torch.__path__,
                                                "dabtools_tpu_torch.")]
-for name in names + ["chip_smoke", "tests.torch_distributed_worker"]:
+for name in names + ["chip_smoke", "tests.torch_distributed_worker",
+                     "tools.torch_ber_sweep"]:
     importlib.import_module(name)
 imported = jaxmods() - before
 # the smoke's host-side signal path, run on a small signal and on the CPU
@@ -386,8 +387,8 @@ print(json.dumps({"added": sorted(imported), "names": names,
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port, chip_smoke.py and the
-    two-process tests' worker, and then running the smoke's host-side
+    """Importing every module of the port, chip_smoke.py, the
+    two-process tests' worker and the port's BER sweep, and then running the smoke's host-side
     signal helpers, adds no ``jax`` module and no module of the JAX
     package at all: the port runs on its own copies of the host
     modules."""
@@ -403,7 +404,11 @@ def test_port_imports_no_jax():
     for name in ("ops.tii", "ops.fir", "ops.resample", "parallel.channel",
                  "cli.dabscan", "frontend.rtlsdr", "tables.bandiii",
                  "ops.rs", "eti.dabplus", "parallel.mesh",
-                 "parallel.timeblock"):
+                 "parallel.timeblock",
+                 "utils.bits", "tables.meta", "eti.mp2", "eti.packet",
+                 "eti.mot", "eti.pad", "eti.pfec", "cli.eti2edi",
+                 "cli.edi2eti", "cli.etiinfo", "cli.etiremux", "cli.eti2iq",
+                 "cli.dabmux", "cli.eti2audio", "cli.eti2mpa"):
         assert f"dabtools_tpu_torch.{name}" in res["names"]
     assert res["added"] == []
     assert res["ran"] == []

@@ -17,13 +17,20 @@ both ranks on one card):
   make, rank-major: one channel row per rank;
 * ``channel``: ``channel_parallel_block`` of 4 streams over a 2 x 2 mesh,
   one channel row per rank;
-* ``mesh``: the shapes and ranks of ``make_receiver_mesh`` meshes.
+* ``mesh``: the shapes and ranks of ``make_receiver_mesh`` meshes;
+* ``exit``: one ``all_gather_object`` of the ranks, then an exit with
+  the group alive: ``init_multihost``'s exit hook is its only teardown.
+
+Every other case ends with ``dist.barrier()`` and
+``dist.destroy_process_group()``.
 
 Each rank zeroes the samples of ``x`` (and the prefix or suffix) that
 its cells do not own, so a halo it read locally would show; writes what
 ``gather_span`` gives it to ``OUTDIR/rank<RANK>.pt`` (``torch.save``),
 and what it saw to ``OUTDIR/rank<RANK>.json``: the cells it decoded and
-its Viterbi dispatches and K1/K2 launches.
+its Viterbi dispatches and K1/K2 launches.  A rank that exits non-zero
+(a signal included) or whose log holds ``terminate called`` (a C++
+abort at exit) fails :func:`launch`.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dabtools_tpu_torch.fic.config import Ensemble
 from dabtools_tpu_torch.models.receiver import to_host
@@ -84,8 +92,9 @@ def launch(outdir: pathlib.Path, case: str, ensemble=None,
                 p.kill()
                 p.wait()
     for r, (p, log) in enumerate(zip(procs, logs)):
-        if p.returncode:
-            raise AssertionError(f"rank {r} failed:\n{log[-3000:]}")
+        if p.returncode or "terminate called" in log:
+            raise AssertionError(f"rank {r} failed (exit code "
+                                 f"{p.returncode}):\n{log[-3000:]}")
     res = []
     for r in range(2):
         info = json.loads((outdir / f"rank{r}.json").read_text())
@@ -104,6 +113,12 @@ def main(argv: list[str]) -> None:
     torch.set_num_threads(2)
     init_multihost(f"127.0.0.1:{port}", 2, rank, backend="gloo")
     info: dict = {"rank": rank}
+    if case == "exit":
+        ranks: list = [None, None]
+        dist.all_gather_object(ranks, rank)
+        info["ranks"] = ranks
+        (outdir / f"rank{rank}.json").write_text(json.dumps(info))
+        return
     if case == "mesh":
         meshes = [make_receiver_mesh(devices=["cpu"] * 4, **kw)
                   for kw in MESH_KWARGS]
@@ -120,8 +135,16 @@ def main(argv: list[str]) -> None:
         except ValueError as e:
             info["rank_error"] = str(e)
         (outdir / f"rank{rank}.json").write_text(json.dumps(info))
-        return
+    else:
+        _decode_case(rank, case, inputs, outdir, dev, info)
+    dist.barrier()
+    dist.destroy_process_group()
 
+
+def _decode_case(rank: int, case: str, inputs: pathlib.Path,
+                 outdir: pathlib.Path, dev: torch.device,
+                 info: dict) -> None:
+    """The ``channel`` and ``span_*`` cases."""
     data = np.load(inputs)
     ens = Ensemble.from_dict(json.loads(str(data["ensemble"])))
     x = torch.from_numpy(data["x"].copy()).to(dev)
