@@ -10,6 +10,10 @@ Port of ``dabtools_tpu/models/receiver.py``.
   never reads a value back to the host.
 * FIC and every MSC profile group decode in ONE ragged Viterbi dispatch
   (the hand-written K1/K2 kernels on a CUDA device).
+* The demod chain is written once for a leading stream axis (the JAX
+  package's vmap, made explicit): a channel batch or a time-block span
+  runs it once per device, and a single stream is the chain with no
+  such axis.
 * All bit-level control (FIG parse, ETI bytes) stays on the host.
 * Cross-block receiver state (time-deinterleaver rings, CIF counter)
   stays on the device between blocks; it is also the checkpoint payload,
@@ -60,33 +64,40 @@ def block_samples(n_frames: int, mode=C.MODE_I, margin: int = 4096) -> int:
 
 
 def _median(v: torch.Tensor) -> torch.Tensor:
-    """Median as ``jnp.median``: the mean of the two middle values for an
-    even count (``torch.median`` returns the lower one)."""
-    s = torch.sort(v).values
-    n = s.shape[0]
+    """Median along the last axis as ``jnp.median``: the mean of the two
+    middle values for an even count (``torch.median`` returns the lower
+    one)."""
+    s = torch.sort(v, dim=-1).values
+    n = s.shape[-1]
     if n % 2:
-        return s[n // 2]
-    return (s[n // 2 - 1] + s[n // 2]) / 2
+        return s[..., n // 2]
+    return (s[..., n // 2 - 1] + s[..., n // 2]) / 2
 
 
 def pre_viterbi(x, frame_start_guesses, rings, cif_count, *,
                 ensemble: Ensemble | None, mode=C.MODE_I,
                 search: int = 192, max_int_cfo: int = 8,
                 sync_diag: dict | None = None, probe_subs: tuple = ()):
-    """The demod chain up to the Viterbi, from per-frame start *guesses*.
+    """The demod chain up to the Viterbi, from per-frame start *guesses*,
+    for one stream or for a leading axis of B streams in the same ops.
 
-    ``x``: (n,) complex64 block; ``frame_start_guesses``: (n_frames,)
-    integer tensor, start of each frame's null symbol, refined per frame
-    by PRS fine sync; ``rings``: {subchid str: (16, n_bits) tensor};
-    ``cif_count``: 0-dim int32 tensor.  All on one device; nothing here
-    reads a value back to the host.  Returns ``(out, rings', jobs,
-    groups)``: the block's diagnostics so far, the advanced rings, the
+    ``x``: (n,) complex64 block, or (B, n) for B streams;
+    ``frame_start_guesses``: (n_frames,) integer tensor, start of each
+    frame's null symbol, refined per frame by PRS fine sync, or (B,
+    n_frames); ``rings``: {subchid str: (16, n_bits) tensor}, or (B, 16,
+    n_bits); ``cif_count``: 0-dim int32 tensor, or (B,) (one per stream).
+    All on one device; nothing here reads a value back to the host.
+    Each stream's sync, CFO, drift and rings are its own.  Returns
+    ``(out, rings', jobs, groups)``: the block's diagnostics so far and
+    the advanced rings (each leaf with the leading (B,) of ``x``), the
     depunctured codeword batches (FIC first, then one per puncturing
-    profile) and the sub-channels of each profile, which
+    profile), each with the streams flattened stream-major into its
+    lanes, and the sub-channels of each profile, which
     :func:`post_viterbi` needs.
     """
-    n_frames = frame_start_guesses.shape[0]
-    frac = fractional_cfo(x, frame_start_guesses[0], mode)
+    lead = x.shape[:-1]
+    n_frames = frame_start_guesses.shape[-1]
+    frac = fractional_cfo(x, frame_start_guesses[..., 0], mode)
 
     prs_guess = frame_start_guesses.to(torch.int64) + mode.null_size \
         + mode.guard
@@ -95,15 +106,16 @@ def pre_viterbi(x, frame_start_guesses, rings, cif_count, *,
     fine = fine_sync_prs(x, prs_guess, mode, search, max_int_cfo,
                          frac_cfo=frac)
     frame_starts = frame_start_guesses.to(torch.int32) + fine["offset"]
-    cfo = frac + fine["int_cfo"][0].to(torch.float32)
+    # frame 0's integer CFO, per stream
+    cfo = frac + fine["int_cfo"][..., 0].to(torch.float32)
 
     # Sample-clock drift (samples/frame) from consecutive PRS fine offsets;
     # median makes it robust to one bad correlation.
     if n_frames > 1:
-        spacing = torch.diff(frame_starts).to(torch.float32)
+        spacing = torch.diff(frame_starts, dim=-1).to(torch.float32)
         drift = _median(spacing) - mode.frame_size
     else:
-        drift = torch.zeros((), dtype=torch.float32, device=x.device)
+        drift = torch.zeros(lead, dtype=torch.float32, device=x.device)
 
     soft, diag = demod_frames(x, frame_starts, mode, cfo, drift)
 
@@ -113,14 +125,14 @@ def pre_viterbi(x, frame_start_guesses, rings, cif_count, *,
     prs_u = frame_starts + mode.null_size + mode.guard
     cir = channel_impulse_response(x, prs_u, cfo, mode)
     half = mode.fft_size // 2
-    pw = cir[:, half - mode.guard: half + mode.guard].abs() ** 2
+    pw = cir[..., half - mode.guard: half + mode.guard].abs() ** 2
     mask = pw > pw.amax(dim=-1, keepdim=True) * 1e-2
     lags = torch.arange(-mode.guard, mode.guard, dtype=torch.float32,
                         device=x.device)
     e = torch.sum(pw * mask, -1) + 1e-20
     tbar = torch.sum(pw * mask * lags, -1) / e
     delay_spread = torch.sqrt(
-        torch.sum(pw * mask * (lags - tbar[:, None]) ** 2, -1) / e)
+        torch.sum(pw * mask * (lags - tbar[..., None]) ** 2, -1) / e)
 
     # ---- FIC ----------------------------------------------------------
     # Codewords protect FIB triplets; in Mode III they span frames
@@ -130,17 +142,17 @@ def pre_viterbi(x, frame_start_guesses, rings, cif_count, *,
         raise ValueError(
             f"{n_frames} frames of Mode {mode.name} FIC do not hold whole "
             f"codewords; use a multiple-of-3 block size")
-    n_cw_total = total_fic // C.FIC_PUNCTURED_BITS
-    fic_soft = soft[:, : mode.n_fic_syms, :].reshape(
-        n_cw_total, C.FIC_PUNCTURED_BITS)
+    # every stream's codewords, stream-major in the lanes
+    fic_soft = soft[..., : mode.n_fic_syms, :].reshape(
+        -1, C.FIC_PUNCTURED_BITS)
 
     out = {
         "cfo_carriers": cfo,
         "prs_peak": fine["peak"],
         "prs_offset": fine["offset"],
         "carrier_mag_cv": diag["carrier_mag_cv"],
-        "cir_power": pw.mean(dim=0),           # (2*guard,) lag window
-        "delay_spread": delay_spread,          # (n_frames,) samples RMS
+        "cir_power": pw.mean(dim=-2),          # (..., 2*guard) lag window
+        "delay_spread": delay_spread,          # (..., n_frames) samples RMS
         "subch": {},
         "subch_metric": {},
         "probe_soft": {},
@@ -155,7 +167,8 @@ def pre_viterbi(x, frame_start_guesses, rings, cif_count, *,
     new_rings = {}
     if ensemble is not None or probe_subs:
         n_cifs = n_frames * mode.n_cifs
-        msc = soft[:, mode.n_fic_syms:, :].reshape(n_cifs, C.CIF_BITS)
+        msc = soft[..., mode.n_fic_syms:, :].reshape(*lead, n_cifs,
+                                                     C.CIF_BITS)
     # Sub-channels with an unidentified UEP puncturing row can't be
     # decoded yet, but their CU slice and 16-CIF time deinterleave need
     # only the Table 31 size: the aligned soft rows feed ops.uep_probe's
@@ -163,7 +176,7 @@ def pre_viterbi(x, frame_start_guesses, rings, cif_count, *,
     for s in probe_subs:
         key = str(s.subchid)
         lo = s.start_cu * C.CU_BITS
-        sub_soft = msc[:, lo: lo + s.size_cus * C.CU_BITS]
+        sub_soft = msc[..., lo: lo + s.size_cus * C.CU_BITS]
         ring, aligned = time_deinterleave(rings[key], cif_count, sub_soft)
         new_rings[key] = ring
         out["probe_soft"][key] = aligned
@@ -177,12 +190,14 @@ def pre_viterbi(x, frame_start_guesses, rings, cif_count, *,
             for s in subs:
                 key = str(s.subchid)
                 lo = s.start_cu * C.CU_BITS
-                sub_soft = msc[:, lo: lo + profile.tx_bits]
+                sub_soft = msc[..., lo: lo + profile.tx_bits]
                 ring, aligned = time_deinterleave(
                     rings[key], cif_count, sub_soft)
                 new_rings[key] = ring
                 aligned_all.append(aligned)
-            jobs.append(depuncture(torch.cat(aligned_all, dim=0), profile))
+            # (..., subs * n_cifs, tx_bits), stream-major in the lanes
+            jobs.append(depuncture(torch.cat(aligned_all, dim=-2).reshape(
+                -1, profile.tx_bits), profile))
     return out, new_rings, jobs, groups
 
 
@@ -190,22 +205,27 @@ def post_viterbi(out: dict, groups: dict, decoded: list, n_frames: int,
                  mode=C.MODE_I) -> dict:
     """The chain after the Viterbi: descramble and pack the decoded bits
     of :func:`pre_viterbi`'s ``jobs`` (``decoded``, in the same order)
-    into ``out``'s FIB bytes and sub-channel rows.  Returns ``out``."""
+    into ``out``'s FIB bytes and sub-channel rows, unflattening the lanes
+    stream-major into ``out``'s leading stream shape.  Returns ``out``."""
+    lead = out["prs_offset"].shape[:-1]
     n_cifs = n_frames * mode.n_cifs
     fic_bits, fic_metric = decoded[0]
     out["fib_bytes"] = pack_bits(descramble(fic_bits)).reshape(
-        n_frames, mode.n_fibs, C.FIB_BYTES)
-    out["fic_metric"] = (fic_metric.reshape(n_frames, -1)
-                         if fic_bits.shape[0] % n_frames == 0
-                         else fic_metric)
+        *lead, n_frames, mode.n_fibs, C.FIB_BYTES)
+    n_cw = (n_frames * mode.fic_bits_per_frame) // C.FIC_PUNCTURED_BITS
+    out["fic_metric"] = fic_metric.reshape(
+        *lead, *((n_frames, -1) if n_cw % n_frames == 0 else (-1,)))
     for (profile, subs), (bits, metric) in zip(groups.items(),
                                                decoded[1:]):
-        data = pack_bits(descramble(bits))   # (batch, data_bytes)
+        rows = len(subs) * n_cifs
+        # (..., subs * n_cifs, data_bytes)
+        data = pack_bits(descramble(bits)).reshape(*lead, rows, -1)
+        metric = metric.reshape(*lead, rows)
         for k, s in enumerate(subs):
             key = str(s.subchid)
             sl = slice(k * n_cifs, (k + 1) * n_cifs)
-            out["subch"][key] = data[sl]
-            out["subch_metric"][key] = metric[sl]
+            out["subch"][key] = data[..., sl, :]
+            out["subch_metric"][key] = metric[..., sl]
     return out
 
 
@@ -216,9 +236,10 @@ def pipeline_core(x, frame_start_guesses, rings, cif_count, *,
                   probe_subs: tuple = ()):
     """The shared demod+decode chain: :func:`pre_viterbi`, the block's ONE
     ragged Viterbi dispatch, :func:`post_viterbi`.  Arguments as
-    :func:`pre_viterbi`'s.  Returns ``(out, rings', cif_count')``.
+    :func:`pre_viterbi`'s, one stream or a leading axis of them.
+    Returns ``(out, rings', cif_count')``.
     """
-    n_frames = frame_start_guesses.shape[0]
+    n_frames = frame_start_guesses.shape[-1]
     out, new_rings, jobs, groups = pre_viterbi(
         x, frame_start_guesses, rings, cif_count, ensemble=ensemble,
         mode=mode, search=search, max_int_cfo=max_int_cfo,
@@ -301,6 +322,13 @@ def to_host(tree: dict) -> dict:
         return res
 
     return rebuild(tree)
+
+
+def pick_stream(tree: dict, j: int) -> dict:
+    """Stream ``j`` of a (nested) dict of tensors with a leading stream
+    axis, as views."""
+    return {k: pick_stream(v, j) if isinstance(v, dict) else v[j]
+            for k, v in tree.items()}
 
 
 @dataclasses.dataclass

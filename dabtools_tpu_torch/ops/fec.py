@@ -69,29 +69,36 @@ def _lag_rows(n_cifs: int, n_bits: int, device: torch.device) -> torch.Tensor:
 
 def time_deinterleave(ring: torch.Tensor, cif_count: torch.Tensor,
                       coded: torch.Tensor):
-    """De-interleave a run of received coded CIF contributions.
+    """De-interleave a run of received coded CIF contributions, of one
+    stream or of each of B streams.
 
-    ``ring``: (16, n_bits) float32, the last 16 received CIFs, slot ``k``
-    holding the received CIF with global index ``== k (mod 16)``.
-    ``cif_count``: 0-dim integer tensor, global index of the first CIF in
-    ``coded``.  ``coded``: (n_cifs, n_bits) newly received coded CIFs.
+    ``ring``: (..., 16, n_bits) float32, the last 16 received CIFs, slot
+    ``k`` holding the received CIF with global index ``== k (mod 16)``.
+    ``cif_count``: integer tensor, global index of the first CIF in
+    ``coded``: 0-dim (shared by the streams) or (B,) (one per stream).
+    ``coded``: (..., n_cifs, n_bits) newly received coded CIFs.  The
+    leading shape ``...`` is () or (B,), the same for ``ring`` and
+    ``coded``.
 
-    Returns ``(new_ring, out)``; ``out[j]`` is logical frame
+    Returns ``(new_ring, out)``; ``out[..., j, :]`` is logical frame
     ``cif_count + j - 15`` (garbage for global index < 15, the 384 ms
-    startup transient).  ``out[j, i]`` is the received stream at global
-    CIF ``cif_count + j + d(i) - 15``: one direct per-lane lag gather from
-    the stream H = [15 history rows from the ring | coded].
+    startup transient).  ``out[..., j, i]`` is the received stream at
+    global CIF ``cif_count + j + d(i) - 15``: one direct per-lane lag
+    gather from the stream H = [15 history rows from the ring | coded].
     """
-    n_cifs, n_bits = coded.shape
+    *lead, n_cifs, n_bits = coded.shape
     dev = coded.device
-    c = cif_count.to(torch.int64)
+    c = cif_count.to(torch.int64)[..., None]                 # (..., 1)
     hist_rows = torch.remainder(c - 15 + torch.arange(15, device=dev), 16)
-    H = torch.cat([ring.index_select(0, hist_rows), coded], dim=0)
-    out = H.gather(0, _lag_rows(n_cifs, n_bits, dev))
+    hist = ring.gather(-2, hist_rows[..., None].expand(*lead, 15, n_bits))
+    H = torch.cat([hist, coded], dim=-2)
+    out = H.gather(-2, _lag_rows(n_cifs, n_bits, dev).expand(
+        *lead, n_cifs, n_bits))
     # New ring: slot s holds the most recent global index == s (mod 16).
     glast = c + n_cifs - 1
     g_s = glast - torch.remainder(glast - torch.arange(16, device=dev), 16)
-    new_ring = H.index_select(0, g_s - (c - 15))
+    new_ring = H.gather(-2, (g_s - (c - 15))[..., None].expand(
+        *lead, 16, n_bits))
     return new_ring, out
 
 

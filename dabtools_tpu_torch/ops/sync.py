@@ -5,7 +5,9 @@ Port of ``dabtools_tpu/ops/sync.py``.  Alignment stays data, never host
 control flow: argmin/argmax results are tensors that feed the gathers
 downstream, and nothing here reads a value back to the host.  The JAX
 package vmaps the per-frame functions; here they take a leading batch of
-frame starts.
+frame starts.  Every function also takes a leading stream axis: ``x``
+(B, n) with per-stream starts and CFOs, one row each, and returns per
+stream; a 1-D ``x`` is one stream with no such axis.
 """
 
 from __future__ import annotations
@@ -44,22 +46,26 @@ def _rot(phase: torch.Tensor) -> torch.Tensor:
 
 
 def moving_power(x: torch.Tensor, window: int) -> torch.Tensor:
-    """Sliding-window power sum, valid positions only (cumsum trick)."""
+    """Sliding-window power sum along the last axis, valid positions only
+    (cumsum trick)."""
     p = x.abs() ** 2
-    cs = torch.cat([p.new_zeros(1), torch.cumsum(p, 0)])
-    return cs[window:] - cs[:-window]
+    cs = torch.cat([p.new_zeros(*p.shape[:-1], 1), torch.cumsum(p, -1)], -1)
+    return cs[..., window:] - cs[..., :-window]
 
 
 def coarse_null_sync(x: torch.Tensor, mode: Mode = MODE_I) -> dict:
-    """Locate the null symbol inside the first frame-length of ``x``.
+    """Locate the null symbol inside the first frame-length of ``x``
+    ((n,) or (B, n): per stream).
 
-    Returns 0-dim tensors: ``null_start`` (int32) and ``null_ratio``
-    (null power / mean power, the sync-confidence metric).
+    Returns tensors of ``x``'s leading shape (0-dim for one stream):
+    ``null_start`` (int32) and ``null_ratio`` (null power / mean power,
+    the sync-confidence metric).
     """
     n = mode.frame_size + mode.null_size
-    win = moving_power(x[:n], mode.null_size)[: mode.frame_size]
-    idx = torch.argmin(win)
-    ratio = win.gather(0, idx.reshape(1))[0] / (win.mean() + 1e-20)
+    win = moving_power(x[..., :n], mode.null_size)[..., : mode.frame_size]
+    idx = torch.argmin(win, dim=-1)
+    ratio = (win.gather(-1, idx[..., None])[..., 0]
+             / (win.mean(dim=-1) + 1e-20))
     return {"null_start": idx.to(torch.int32), "null_ratio": ratio}
 
 
@@ -67,13 +73,14 @@ def fractional_cfo(x: torch.Tensor, frame_start: torch.Tensor,
                    mode: Mode = MODE_I, n_syms: int = 8) -> torch.Tensor:
     """Fractional CFO (in carrier spacings, |.| < 0.5) from guard-interval
     correlation over the first ``n_syms`` symbols of the frame at
-    ``frame_start`` (0-dim tensor: start of the null symbol)."""
-    sym0 = frame_start.to(torch.int64) + mode.null_size
+    ``frame_start`` (start of the null symbol: 0-dim, or (B,) for a
+    (B, n) ``x``, one per stream).  Returns one CFO per stream."""
+    sym0 = frame_start.to(torch.int64)[..., None] + mode.null_size
     starts = sym0 + torch.arange(n_syms, device=x.device) * mode.symbol_size
-    sym = window_slices(x, starts, mode.symbol_size)     # (n_syms, T_s)
-    guard = sym[:, : mode.guard]
-    tail = sym[:, mode.fft_size: mode.fft_size + mode.guard]
-    corr = torch.sum(torch.conj(guard) * tail)
+    sym = window_slices(x, starts, mode.symbol_size)  # (..., n_syms, T_s)
+    guard = sym[..., : mode.guard]
+    tail = sym[..., mode.fft_size: mode.fft_size + mode.guard]
+    corr = torch.sum(torch.conj(guard) * tail, dim=(-2, -1))
     # phase advance over T_u samples = 2*pi * cfo_norm
     return torch.angle(corr) / (2.0 * math.pi)
 
@@ -112,20 +119,21 @@ def fine_sync_prs(x: torch.Tensor, prs_guess: torch.Tensor,
                   max_int_cfo: int = 8,
                   frac_cfo: torch.Tensor | float = 0.0) -> dict:
     """Joint fine-timing + integer-CFO estimate from the PRS, for a batch
-    of frames.
+    of frames of one stream or of each of B streams.
 
     ``prs_guess``: (F,) integer tensor, estimated start of each frame's
-    PRS useful part (frame_start + null + guard).  Searches timing offsets
-    in [-search, +search) and integer CFOs in [-max_int_cfo, +max_int_cfo]
-    by correlating against shifted PRS templates (one batched FFT
-    correlation evaluates every hypothesis of every frame).  ``frac_cfo``
-    is derotated from the window before the integer search, so the integer
-    bin and the fractional estimate cannot pair inconsistently (see the
-    JAX docstring).
+    PRS useful part (frame_start + null + guard); (B, F) for a (B, n)
+    ``x``.  Searches timing offsets in [-search, +search) and integer
+    CFOs in [-max_int_cfo, +max_int_cfo] by correlating against shifted
+    PRS templates (one batched FFT correlation evaluates every hypothesis
+    of every frame of every stream).  ``frac_cfo`` (0-dim, or (B,): one
+    per stream) is derotated from the window before the integer search,
+    so the integer bin and the fractional estimate cannot pair
+    inconsistently (see the JAX docstring).
 
-    Returns (F,) tensors: ``offset`` (int32, add to prs_guess),
-    ``int_cfo`` (int32, carriers), ``peak`` (float32 normalized 0..1
-    correlation quality).
+    Returns tensors of ``prs_guess``'s shape: ``offset`` (int32, add to
+    prs_guess), ``int_cfo`` (int32, carriers), ``peak`` (float32
+    normalized 0..1 correlation quality).
     """
     dev = x.device
     win_len = mode.fft_size + 2 * search
@@ -133,20 +141,21 @@ def fine_sync_prs(x: torch.Tensor, prs_guess: torch.Tensor,
     win = window_slices(x, prs_guess.to(torch.int64) - search, win_len)
     frac = torch.as_tensor(frac_cfo, dtype=torch.float32, device=dev)
     ph = -2.0 * math.pi * torch.remainder(
-        frac * torch.arange(win_len, dtype=torch.float32, device=dev)
-        / mode.fft_size, 1.0)
-    win = win * _rot(ph)
-    wspec = torch.fft.fft(win, n=fft_len, dim=-1)              # (F, L)
+        frac[..., None] * torch.arange(win_len, dtype=torch.float32,
+                                       device=dev)
+        / mode.fft_size, 1.0)                           # (..., win_len)
+    win = win * _rot(ph).unsqueeze(-2)
+    wspec = torch.fft.fft(win, n=fft_len, dim=-1)              # (..., F, L)
     temps = _prs_templates(mode, max_int_cfo, fft_len, dev)    # (C, L)
-    corr = torch.fft.ifft(wspec[:, None, :] * temps[None], dim=-1)
+    corr = torch.fft.ifft(wspec[..., None, :] * temps, dim=-1)
     n_lags = 2 * search
-    mag = corr[..., :n_lags].abs()                             # (F, C, lags)
+    mag = corr[..., :n_lags].abs()                        # (..., F, C, lags)
     # flat argmax in row-major (CFO bin, lag) order, as jnp.argmax
-    best, flat = mag.reshape(mag.shape[0], -1).max(dim=-1)
+    best, flat = mag.flatten(-2).max(dim=-1)
     c_idx = torch.div(flat, n_lags, rounding_mode="floor")
     lag = flat - c_idx * n_lags
     energy = torch.sqrt(
-        torch.sum(win[:, search:search + mode.fft_size].abs() ** 2, -1)
+        torch.sum(win[..., search:search + mode.fft_size].abs() ** 2, -1)
         * _prs_energy(mode))
     return {
         "offset": (lag - search).to(torch.int32),
@@ -172,28 +181,31 @@ def channel_impulse_response(x: torch.Tensor, prs_start: torch.Tensor,
                              cfo_carriers: torch.Tensor,
                              mode: Mode = MODE_I) -> torch.Tensor:
     """Least-squares channel impulse response from the synchronized PRS,
-    for a batch of frames.
+    for a batch of frames of one stream or of each of B streams.
 
     ``prs_start``: (F,) integer tensor, start of each PRS useful part
-    after fine sync.  ``cfo_carriers``: 0-dim float32 total CFO in
-    carrier spacings (integer part undone by a spectrum rotation,
-    fractional part by a time-domain derotation).
+    after fine sync; (B, F) for a (B, n) ``x``.  ``cfo_carriers``: the
+    stream's total CFO in carrier spacings, float32, 0-dim or (B,)
+    (integer part undone by a spectrum rotation, fractional part by a
+    time-domain derotation, each per stream).
 
-    Returns (F, fft_size) complex64, circularly shifted so index
+    Returns (..., F, fft_size) complex64, circularly shifted so index
     ``fft_size // 2`` is lag 0 (the receiver's timing reference).
     """
     dev = x.device
     n = mode.fft_size
-    win = window_slices(x, prs_start, n)                       # (F, n)
+    win = window_slices(x, prs_start, n)                   # (..., F, n)
     ic = torch.round(cfo_carriers)
     frac = cfo_carriers - ic
     k = torch.arange(n, dtype=torch.float32, device=dev)
-    win = win * torch.exp(-2j * math.pi * frac * k / n)
+    win = win * torch.exp(-2j * math.pi * frac[..., None] * k
+                          / n).unsqueeze(-2)
     spec = torch.fft.fft(win, dim=-1)
-    # jnp.roll(spec, -ic) with a tensor shift: y[k] = spec[(k + ic) mod n]
+    # jnp.roll(spec, -ic) with a per-stream tensor shift:
+    # y[..., k] = spec[..., (k + ic) mod n]
     shift_idx = torch.remainder(
-        torch.arange(n, device=dev) + ic.to(torch.int64), n)
-    y = spec[:, shift_idx]
+        torch.arange(n, device=dev) + ic.to(torch.int64)[..., None], n)
+    y = spec.gather(-1, shift_idx.unsqueeze(-2).expand_as(spec))
     zc, centre = _cir_tables(mode, dev)
     h = torch.fft.ifft(y * zc, dim=-1)
-    return h[:, centre]
+    return h[..., centre]

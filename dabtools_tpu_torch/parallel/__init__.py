@@ -1,11 +1,12 @@
 """Parallelism layer of the PyTorch port.
 
-* ``channel``   — many independent streams as one batch, with one Viterbi
-  dispatch per device for all of them; with a ``mesh``, each stream on
-  its channel row's device.
+* ``channel``   — many independent streams as one batch: per device, one
+  demod chain over a leading stream axis and one Viterbi dispatch for
+  all of its streams; with a ``mesh``, each stream on its channel row's
+  device.
 * ``timeblock`` — one stream's time axis cut into shards, each re-primed
-  by a warmup halo from its left neighbour, all shards' codewords in one
-  Viterbi dispatch per device.
+  by a warmup halo from its left neighbour; a device's (channel, shard)
+  cells run as one batch, one demod chain and one Viterbi dispatch.
 * ``mesh``      — the (channels, time) grid of cells, each a
   ``torch.device`` and the rank that owns it, that both place their
   work on; one card may fill every cell.  ``init_multihost`` starts a

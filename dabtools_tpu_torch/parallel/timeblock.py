@@ -16,12 +16,14 @@ Boundary shards take their halo from explicit ``prefix``/``suffix``
 tensors (the streaming host supplies the previous span's tail / next
 span's head; zeros at cold start give the usual startup transient).
 
-Every (channel, shard) cell of this process runs the receiver's
-:func:`pre_viterbi`; then ONE ragged Viterbi dispatch per device takes
-all of their codewords (on one card: one K1 and one K2 launch per span
-and process), then :func:`post_viterbi`.  In one process nothing inside
-waits for the device; a halo sent through ``gloo`` is copied to the
-host.
+The (channel, shard) cells of this process that share a device run as
+one batch (the JAX package's vmap over a shard's channels, here over
+every cell of the device): ONE :func:`pre_viterbi` over a leading cells
+axis, each cell with its own halo-extended samples and CIF count, then
+ONE ragged Viterbi dispatch for all of their codewords (on one card: one
+K1 and one K2 launch per span and process), then ONE
+:func:`post_viterbi`.  In one process nothing inside waits for the
+device; a halo sent through ``gloo`` is copied to the host.
 
 Deterministic seams: shard ``i`` emits exactly global frames
 ``[i*F, (i+1)*F)`` of the span — no duplicates, no gaps, bit-identical to
@@ -38,9 +40,7 @@ import torch.distributed as dist
 
 from dabtools_tpu_torch import constants as C
 from dabtools_tpu_torch.fic.config import Ensemble
-from dabtools_tpu_torch.models.receiver import post_viterbi, pre_viterbi
-from dabtools_tpu_torch.ops.fec import init_deinterleave_ring
-from dabtools_tpu_torch.parallel.channel import decode_by_device
+from dabtools_tpu_torch.models.receiver import pick_stream, pipeline_core
 from dabtools_tpu_torch.parallel.mesh import ReceiverMesh, assemble_cells
 
 
@@ -183,7 +183,9 @@ def timeblock_receiver(mesh: ReceiverMesh, ensemble: Ensemble,
             f"halo ({lh} samples) exceeds the shard span "
             f"({f_own} frames = {f_own * fr}); single-hop ppermute halo "
             f"exchange requires frames_per_shard > warmup_frames")
-    guesses: dict = {}     # per device: the W+F frame start guesses
+    # per (device, its cells): the W+F frame start guesses and each
+    # cell's shard offset in CIFs, made once
+    per_device: dict = {}
     own_cifs = slice(w * mode.n_cifs, None)
     keys = [str(s.subchid) for s in ensemble.subchannels]
 
@@ -220,29 +222,35 @@ def timeblock_receiver(mesh: ReceiverMesh, ensemble: Ensemble,
                 f"{prefix.shape[-1]}/{suffix.shape[-1]}")
         rows = mesh.rows_of(x.shape[0])
         halos = exchange_halos(mesh, x, prefix, suffix, f_own * fr, lh, rh)
-        cells = list(halos)
-        devices = [mesh.devices[rows[c]][i] for c, i in cells]
-        outs, jobs, groups = [], [], {}
-        for (c, i), dev in zip(cells, devices):
-            if dev not in guesses:
-                guesses[dev] = left_margin + torch.arange(
-                    w + f_own, dtype=torch.int32, device=dev) * fr
-            # the CIF count of the scan's first frame, g0 + i*F - W
-            cif0 = torch.full((), (int(g0) + i * f_own - w) * mode.n_cifs,
-                              dtype=torch.int32, device=dev)
-            rings = {str(s.subchid): init_deinterleave_ring(
-                s.profile.tx_bits, dev) for s in ensemble.subchannels}
-            left, right = halos[c, i]
-            own = x[c, i * f_own * fr:(i + 1) * f_own * fr].to(dev)
-            out, _, job, groups = pre_viterbi(
-                torch.cat([left, own, right]), guesses[dev], rings, cif0,
+        by_dev: dict = {}
+        for c, i in halos:
+            by_dev.setdefault(mesh.devices[rows[c]][i], []).append((c, i))
+        mine = {}
+        for dev, cells in by_dev.items():
+            if (dev, tuple(cells)) not in per_device:
+                per_device[dev, tuple(cells)] = (
+                    left_margin + torch.arange(
+                        w + f_own, dtype=torch.int32, device=dev) * fr,
+                    torch.tensor([i * f_own * mode.n_cifs for _, i in cells],
+                                 dtype=torch.int32, device=dev))
+            g, shard_cifs = per_device[dev, tuple(cells)]
+            # each cell's [left halo | own samples | right halo], one row
+            xe = torch.cat([
+                t for c, i in cells for t in (
+                    halos[c, i][0],
+                    x[c, i * f_own * fr:(i + 1) * f_own * fr].to(dev),
+                    halos[c, i][1])]).reshape(len(cells), -1)
+            # the CIF count of each cell's first frame, g0 + i*F - W
+            cif0 = shard_cifs + (int(g0) - w) * mode.n_cifs
+            rings = {str(s.subchid): torch.zeros(
+                (len(cells), C.TIME_INTERLEAVE_DEPTH, s.profile.tx_bits),
+                device=dev) for s in ensemble.subchannels}
+            out, _, _ = pipeline_core(
+                xe, g.expand(len(cells), -1), rings, cif0,
                 ensemble=ensemble, mode=mode, search=search,
                 max_int_cfo=max_int_cfo)
-            outs.append(out)
-            jobs.append(job)
-        for out, dec in zip(outs, decode_by_device(devices, jobs)):
-            post_viterbi(out, groups, dec, w + f_own, mode)
-        mine = {cell: own_frames(o) for cell, o in zip(cells, outs)}
+            mine.update({cell: own_frames(pick_stream(out, k))
+                         for k, cell in enumerate(cells)})
         if len(mine) < x.shape[0] * n_shards:
             return mine
         return assemble_cells(mine, x.device)

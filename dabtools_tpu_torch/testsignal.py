@@ -1,9 +1,10 @@
 """Known-answer signals for exercising the port: the flagship mux as
 impaired u8 IQ (optionally with TII), at another sample rate, or several
 such muxes in one wideband Band III capture; the closed-loop ensemble of
-the BER sweep; the mixed mux (EEP, UEP and a DAB+ sub-channel of real
-superframes); the everything-mux's configuration for the port's
-``dabmux``; and coded Viterbi lanes with their messages.
+the BER sweep; a hard channel batch (streams whose integer CFOs and
+sample-clock drifts differ); the mixed mux (EEP, UEP and a DAB+
+sub-channel of real superframes); the everything-mux's configuration
+for the port's ``dabmux``; and coded Viterbi lanes with their messages.
 
 Host-side NumPy, built on the port's copies of the transmitter modules
 (``mod.modulator``, ``mod.impairments``, ``mod.convcode``, ``fic``,
@@ -38,6 +39,7 @@ from dabtools_tpu_torch.mod.convcode import conv_encode
 from dabtools_tpu_torch.mod.impairments import (
     awgn,
     carrier_offset,
+    multipath,
     quantize_u8,
     timing_offset,
 )
@@ -163,6 +165,37 @@ def impaired_u8(x: np.ndarray, rng, snr_db: float, cfo_hz: float,
     samples of timing offset, then RTL-SDR style u8 interleaved IQ."""
     y = timing_offset(carrier_offset(awgn(x, snr_db, rng), cfo_hz), delay)
     return quantize_u8(y)
+
+
+def resample_ppm(x: np.ndarray, ppm: float) -> np.ndarray:
+    """Linear-interpolation resample modelling a sample-clock offset of
+    ``ppm`` parts per million."""
+    ratio = 1.0 + ppm * 1e-6
+    t_out = np.arange(int(x.size / ratio)) * ratio
+    re = np.interp(t_out, np.arange(x.size), x.real)
+    im = np.interp(t_out, np.arange(x.size), x.imag)
+    return (re + 1j * im).astype(np.complex64)
+
+
+# The hard batch: integer CFO bins -2, 0 and +3, drifts of -50, 0 and +50
+# ppm, and the last stream through a static TU6 channel.
+HARD_CFO_CARRIERS = (-2.4, 0.3, 3.3)
+HARD_PPM = (-50.0, 0.0, 50.0)
+HARD_START = (300, 1500, 7000)
+
+
+def hard_batch(x: np.ndarray, n: int, snr_db: float, rng) -> np.ndarray:
+    """The hard batch of one modulation ``x``: 3 streams of ``n``
+    samples, each with its own integer CFO, sample-clock drift, start
+    inside frame 0 and noise, the last through TU6; (3, n) complex64."""
+    xs = []
+    for c, (cfo, ppm, st) in enumerate(zip(HARD_CFO_CARRIERS, HARD_PPM,
+                                           HARD_START)):
+        y = carrier_offset(resample_ppm(x, ppm), cfo * 1000.0)[st:]
+        if c == len(HARD_START) - 1:
+            y = multipath(y, rng=rng)
+        xs.append(awgn(y, snr_db, rng)[:n])
+    return np.stack(xs)
 
 
 def upconvert(baseband: np.ndarray, factor: int, offset_hz: int,

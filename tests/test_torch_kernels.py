@@ -421,7 +421,10 @@ def test_span_across_two_processes_on_card(cuda, tmp_path):
     """A 2 x 4 span with shards 0-1 on rank 0 and 2-3 on rank 1, both
     ranks on ``cuda:0`` and their halos sent through ``gloo``: each
     rank's gathered span equals the one-process span on the card byte
-    for byte, and each rank launched K1 and K2 once."""
+    for byte, but for ``cfo_carriers`` within float32 rounding (a rank's
+    batch of 4 cells sums the guard correlation in another order than
+    the one-process batch of 8), and each rank launched K1 and K2
+    once."""
     from dabtools_tpu_torch.constants import MODE_I
     from dabtools_tpu_torch.fic.config import Ensemble, Subchannel
     from dabtools_tpu_torch.models.receiver import to_host
@@ -458,8 +461,9 @@ def test_span_across_two_processes_on_card(cuda, tmp_path):
     for res, info in ranks:
         assert info["launches"] == [1, 1]
         got = res["out"]
-        for key in ("fib_bytes", "fic_metric", "prs_peak", "prs_offset",
-                    "cfo_carriers"):
+        for key in ("fib_bytes", "fic_metric", "prs_peak", "prs_offset"):
             assert got[key].tobytes() == want[key].tobytes(), key
         for key in ("subch", "subch_metric"):
             assert got[key]["1"].tobytes() == want[key]["1"].tobytes(), key
+        np.testing.assert_allclose(got["cfo_carriers"], want["cfo_carriers"],
+                                   atol=1e-9, rtol=1e-6)

@@ -47,6 +47,7 @@ import torch
 import torch.distributed as dist
 
 from dabtools_tpu_torch.fic.config import Ensemble
+from dabtools_tpu_torch.models import receiver as trx
 from dabtools_tpu_torch.models.receiver import to_host
 from dabtools_tpu_torch.ops import viterbi_cuda as K
 from dabtools_tpu_torch.parallel import channel as tchannel
@@ -155,7 +156,10 @@ def _decode_case(rank: int, case: str, inputs: pathlib.Path,
         dispatches.append(sum(s.shape[0] for s in softs))
         return real(softs)
 
+    # the channel batch dispatches in parallel/channel.py, the span
+    # through the receiver's pipeline_core
     tchannel.viterbi_decode_ragged = counting
+    trx.viterbi_decode_ragged = counting
     if case == "channel":
         mesh = make_receiver_mesh(n_channels=2, devices=[dev] * 2)
         rows = mesh.rows_of(x.shape[0])
