@@ -136,6 +136,32 @@ of which raises on failure:
    closed-loop ensemble (EEP 3-A 64 kbit/s): acquisition and a frame
    decode rate of 1.0 at 6 and 8 dB for every seed; the curve on a line
    of its own beside the card's name and power limit.
+15. impairments: the JAX package's robustness set on the card, its
+   signals built by ``testsignal`` and ``mod.impairments`` (the same
+   samples as the JAX tests'), each stream through
+   ``DabReceiver(device="cuda")`` with K1/K2 launched once per device
+   step.  Sync loss (``tests/test_robustness.py``: 8 frames, 4 of noise,
+   8): against the port's CPU decode of the same samples, ERR bytes
+   equal in count and place, FIC, FCT and streams equal on every frame,
+   every ERR 0xFF frame byte-identical, the last frame 0xFF; then the
+   gap block's dispatch (16 FIC and 16 noise codewords) through K1/K2
+   against the plain versions and ``viterbi_decode4`` on the CPU, bits
+   exact (ties decide there).  CFOs of 4300, 2500, -3500 and 1499 Hz:
+   every payload the modulator's, the estimate within 0.05 carriers,
+   every ERR 0xFF frame equal to the CPU decode.  Multipath
+   (``tests/test_multipath.py``): the SFN echo, TU6 static, TU6 with 10
+   Hz fading plus 300 Hz, RA4; payloads exact and the echo's and TU6's
+   delay-spread windows.  The impaired span and batch
+   (``tests/test_sharding_impaired.py``: TU6, 2.5 carriers, 50 ppm, 22
+   dB; PRS search 448): the 2 x 4 span on ``cuda:0`` and 8 streams as
+   one channel batch, one K1 and one K2 launch each, every row the
+   modulator's, CFOs within 0.15 carriers of 2.5 (the span's spread under
+   0.1).  The soak (``tests/test_soak.py``: 625 frames, 180 Hz, 14 dB,
+   chunks of 1,000,003 samples) through ``DabReceiver(n_frames=8)``: no
+   payload mismatch, FCT continuous, the host state's bounds, and
+   ``memory_allocated`` after the last block at most 1 MiB above its
+   value after the 10th device step; its real-time multiple (host clock,
+   feed included) and ``max_memory_allocated``.
 
 Every path starts with all five launch counters at 0 and reads them
 when it ends.  Each phase prints its seconds.  The line before the last
@@ -170,11 +196,16 @@ from dabtools_tpu_torch.eti.assemble import EtiAssembler
 from dabtools_tpu_torch.eti.parse import EtiParser
 from dabtools_tpu_torch.mod.convcode import conv_encode
 from dabtools_tpu_torch.mod.impairments import (
+    RA4,
+    TU6,
     awgn,
     carrier_offset,
+    multipath,
     quantize_u8,
+    sfn_echo,
     u8_to_complex,
 )
+from dabtools_tpu_torch.models import receiver as R
 from dabtools_tpu_torch.models.receiver import (
     DabReceiver,
     block_samples,
@@ -256,6 +287,16 @@ BER_SNRS = (3.0, 4.0, 5.0, 6.0, 8.0)  # phase 14: the waterfall's points
 BER_CLEAN_SNRS = (6.0, 8.0)     # ... where every frame must decode
 BER_SEEDS = 2
 BER_FRAMES = 12
+# phase 15: tests/test_robustness.py's CFO cases as (Hz, modulation seed,
+# noise seed, SNR dB), tests/test_sharding_impaired.py's widened PRS
+# search and batch, tests/test_soak.py's stream
+IMP_CFO_CASES = ((4300.0, 3, 3, 16.0), (2500.0, 5, 7, 18.0),
+                 (-3500.0, 5, 7, 18.0), (1499.0, 5, 7, 18.0))
+IMP_SEARCH = 448
+IMP_STREAMS = 8
+SOAK_FRAMES = 625               # 60 s of stream
+SOAK_STEP = 1_000_003           # ragged, prime-sized chunks
+SOAK_MEM_SLACK = 2 ** 20        # memory_allocated growth allowed, bytes
 FRAME_SIZE = MODE_I.frame_size
 
 # Bounds: NVIDIA H100 SXM data-sheet peaks.
@@ -312,6 +353,15 @@ def _reset_counts() -> None:
 
 def _counts() -> dict:
     return {name: getattr(K, f"{name}_launches") for name in KERNELS}
+
+
+def _launched_per_step(what: str, launches: dict, steps: int) -> None:
+    """K1 and K2 launched once per device step of ``what``."""
+    for name in ("acs4", "traceback4"):
+        if launches[name] != steps:
+            raise AssertionError(f"{what}: {name} launched "
+                                 f"{launches[name]} times in {steps} device "
+                                 f"steps")
 
 
 def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -612,10 +662,7 @@ def end_to_end_phase(rng) -> dict:
     n = S.check_eti_payloads(eti, payload, rx._activation_cif)
     print(f"ETI: {n} frames, all 9 sub-channel payloads "
           f"byte-identical to the modulator's")
-    for name in ("acs4", "traceback4"):
-        if launches[name] != rx.device_steps:
-            raise AssertionError(f"{name} launched {launches[name]} times "
-                                 f"in {rx.device_steps} device steps")
+    _launched_per_step("end to end", launches, rx.device_steps)
     print(f"launches: {launches} in {rx.device_steps} device steps")
     single_stream_ops(u8, ens)
     return {"launches": launches, "u8": u8, "ensemble": ens}
@@ -841,9 +888,7 @@ def wideband_phase(rng, card: str) -> None:
                 raise AssertionError(f"dabscan {block}: {recs[block]}")
         if "eid" in recs["6B"]:
             raise AssertionError("dabscan found an ensemble in 6B")
-        if (launches["acs4"], launches["traceback4"]) != (1, 1):
-            raise AssertionError("dabscan's FIC pass is not one K1 and one "
-                                 "K2 launch")
+        _launched_per_step("dabscan's FIC pass", launches, 1)
         lines = S.run_cli(dabscan.main, scan)[0].splitlines()
         b_line = next(line for line in lines if line.startswith("6B"))
         print(f"dabscan: {' | '.join(lines)}")
@@ -940,8 +985,7 @@ def channel_batch_phase(rng, card: str) -> None:
         out = batched(xb)
         launches = _counts()
         print(f"{what} launches: {launches}")
-        if (launches["acs4"], launches["traceback4"]) != (1, 1):
-            raise AssertionError(f"{what}: not one K1 and one K2 launch")
+        _launched_per_step(what, launches, 1)
         for c in range(xb.shape[0]):
             ref = single(c, xb)
             if not np.array_equal(out["fib_bytes"][c], ref["fib_bytes"]):
@@ -1124,10 +1168,7 @@ def mixed_phase(rng) -> None:
         [f.subchannel_data(S.MIXED_DABPLUS) for f in frames], aus)
     print(f"DAB+ sub-channel: {n_au} access units, every CRC good, a run "
           f"of the builder's")
-    for name in ("acs4", "traceback4"):
-        if launches[name] != rx.device_steps:
-            raise AssertionError(f"{name} launched {launches[name]} times "
-                                 f"in {rx.device_steps} device steps")
+    _launched_per_step("mixed mux", launches, rx.device_steps)
     print(f"mixed mux launches: {launches} in {rx.device_steps} device "
           f"steps")
 
@@ -1163,8 +1204,7 @@ def timeblock_phase(rng, card: str) -> dict:
     launches = _counts()
     print(f"time-block span: mesh {mesh.shape} on one card, {f_own} own + "
           f"{warm} warmup frames per shard, g0 {g0}; launches {launches}")
-    if (launches["acs4"], launches["traceback4"]) != (1, 1):
-        raise AssertionError("the span is not one K1 and one K2 launch")
+    _launched_per_step("time-block span", launches, 1)
 
     n_frames = n_time * f_own
     n_rows = n_frames * 4
@@ -1435,9 +1475,7 @@ def span_worker(rank: int, port: str, tmp: pathlib.Path) -> None:
     out = run()
     torch.cuda.synchronize()
     launches = _counts()
-    if (launches["acs4"], launches["traceback4"]) != (1, 1):
-        raise AssertionError(f"rank {rank}: the span is not one K1 and one "
-                             f"K2 launch: {launches}")
+    _launched_per_step(f"rank {rank}'s span", launches, 1)
     got = to_host(gather_span(out, mesh))
     if not crc16_ok_batch(got["fib_bytes"].reshape(-1, 32)).all():
         raise AssertionError(f"rank {rank}: FIB CRC failures in the span")
@@ -1509,10 +1547,7 @@ def lab_chain_phase(card: str) -> None:
           f"eti2audio: {res['frames']} off-air ETI frames, sub-channels "
           f"1-3 equal to the dabmux ETI's; FIG 0/14, epg.bin, .mp2, .aac, "
           f"DLS, DL Plus and the etiinfo metadata all through")
-    for name in ("acs4", "traceback4"):
-        if launches[name] != res["device_steps"]:
-            raise AssertionError(f"{name} launched {launches[name]} times "
-                                 f"in {res['device_steps']} device steps")
+    _launched_per_step("lab chain", launches, res["device_steps"])
     print(f"lab chain launches: {launches} in {res['device_steps']} device "
           f"steps")
     print(f"lab chain: dab2eti {res['dab2eti_s']:.3f} s for a capture "
@@ -1555,6 +1590,297 @@ def ber_phase(card: str) -> None:
             raise AssertionError(f"BER waterfall: {r}")
 
 
+def _card_rx(x: np.ndarray, n_frames: int = 4, dispatches=None):
+    """``x`` through ``DabReceiver(n_frames, device="cuda")``; returns
+    (rx, its ETI) after checking K1/K2 launched once per device step.
+    With a list ``dispatches``, each Viterbi dispatch's soft jobs are
+    appended to it."""
+    rx = DabReceiver(n_frames=n_frames, device="cuda")
+    real = R.viterbi_decode_ragged
+
+    def recording(jobs):
+        dispatches.append([j.clone() for j in jobs])
+        return real(jobs)
+
+    if dispatches is not None:
+        R.viterbi_decode_ragged = recording
+    _reset_counts()
+    try:
+        eti = rx.feed(x)
+    finally:
+        R.viterbi_decode_ragged = real
+    _launched_per_step("receiver", _counts(), rx.device_steps)
+    if rx.ensemble is None:
+        raise AssertionError("no ensemble acquired")
+    return rx, eti
+
+
+def _clean_frames_as_cpu(what: str, eti, x: np.ndarray) -> list:
+    """The port's CPU decode of ``x`` against the card's ETI ``eti``: the
+    same number of frames, the same ERR bytes in the same places, FIC
+    bytes, FCT and streams equal on every frame, and every frame with ERR
+    0xFF byte for byte.  Returns the ERR bytes."""
+    ref = DabReceiver(n_frames=4, device="cpu").feed(x)
+    if len(eti) != len(ref):
+        raise AssertionError(f"{what}: {len(eti)} ETI frames on the card, "
+                             f"{len(ref)} on the CPU")
+    errs = []
+    for k, (raw_c, raw_h, fc, fh) in enumerate(zip(
+            eti, ref, EtiParser().feed(b"".join(eti)),
+            EtiParser().feed(b"".join(ref)))):
+        if (fc.err, fc.fic, fc.fct, set(fc.streams)) != (
+                fh.err, fh.fic, fh.fct, set(fh.streams)):
+            raise AssertionError(f"{what}: ETI frame {k}'s ERR, FIC, FCT "
+                                 f"or streams differ from the CPU decode")
+        if fc.err == 0xFF and raw_c != raw_h:
+            raise AssertionError(f"{what}: ETI frame {k} (ERR 0xFF) "
+                                 f"differs from the CPU decode")
+        errs.append(fc.err)
+    return errs
+
+
+def _sync_loss_check() -> None:
+    """The sync-loss stream on the card against the CPU decode, then the
+    gap block's noise codewords through K1/K2 against the plain
+    versions."""
+    x, sent = S.sync_loss_stream()
+    dispatches = []
+    rx, eti = _card_rx(x, dispatches=dispatches)
+    errs = _clean_frames_as_cpu("sync loss", eti, x)
+    flagged = [k for k, e in enumerate(errs) if e != 0xFF]
+    if not flagged or errs[-1] != 0xFF or 0xFF not in errs:
+        raise AssertionError(f"sync loss: ERR bytes {errs}")
+    noise = sum(f.subchannel_data(1) not in sent
+                for f in EtiParser().feed(b"".join(eti)))
+    print(f"sync loss (8 frames, 4 of noise, 8): {len(eti)} ETI frames, "
+          f"ERR-flagged {flagged[0]}-{flagged[-1]} ({len(flagged)}), the "
+          f"last 0xFF; ERR, FIC, FCT and streams equal to the CPU decode "
+          f"on every frame, every 0xFF frame byte-identical; {noise} "
+          f"payloads decoded from noise (not compared)")
+    # the last dispatch decodes the gap: 16 FIC + 16 noise codewords
+    jobs = dispatches[-1]
+    if [tuple(j.shape) for j in jobs] != [(16, 3096), (16, 6168)]:
+        raise AssertionError(f"sync loss: gap block jobs "
+                             f"{[tuple(j.shape) for j in jobs]}")
+    soft, lengths = V.ragged_lanes(jobs)
+    b, n4 = soft.shape
+    t2 = torch.from_numpy((lengths // 2).astype(np.int32)).cuda()
+    _, bits_k, *_ = hold_k1k2(soft.reshape(b, n4 // 8, 8), t2,
+                              V._ws4(soft.device),
+                              "sync-loss gap block (16 FIC + 16 noise "
+                              "codewords)")
+    plain, _ = V.viterbi_decode4(soft.cpu(), lengths)
+    if not torch.equal(bits_k[:, :plain.shape[1]].cpu(), plain):
+        raise AssertionError("sync loss: K1/K2 bits differ from "
+                             "viterbi_decode4 on the CPU")
+    print("sync-loss gap block: K1/K2 bits equal viterbi_decode4's plain "
+          "decode on the CPU bit for bit")
+
+
+def _cfo_check() -> None:
+    """4300 Hz and the half-carrier boundary: payloads exact, CFO within
+    0.05 carriers, ERR 0xFF frames equal to the CPU decode."""
+    ens = S.closed_loop_ensemble()
+    for cfo_hz, seed, noise_seed, snr in IMP_CFO_CASES:
+        x, payload = S.modulate(ens, 12, np.random.default_rng(seed))
+        x = awgn(carrier_offset(x, cfo_hz), snr,
+                 np.random.default_rng(noise_seed))
+        rx, eti = _card_rx(x)
+        n = S.check_eti_payloads(eti, payload, rx._activation_cif)
+        errs = _clean_frames_as_cpu(f"CFO {cfo_hz:g} Hz", eti, x)
+        cfo = rx.stats[-1].cfo_carriers
+        print(f"CFO {cfo_hz:+g} Hz, {snr:g} dB: {n} ETI frames, payloads "
+              f"exact, {errs.count(0xFF)} with ERR 0xFF byte-identical to "
+              f"the CPU decode; estimate {cfo:+.4f} carriers")
+        if abs(cfo - cfo_hz / 1000.0) > 0.05:
+            raise AssertionError(f"CFO {cfo_hz:g} Hz: estimate {cfo}")
+
+
+def _multipath_check() -> None:
+    """The SFN echo, TU6 static, TU6 fading with 300 Hz, RA4: payloads
+    exact and the delay-spread windows."""
+    ens = S.closed_loop_ensemble()
+    x, payload = S.modulate(ens, 14, np.random.default_rng(0))
+    want = payload[1].tobytes()
+
+    def noisy():
+        return awgn(x, 20.0, np.random.default_rng(5))
+
+    cases = {
+        "SFN echo -2 dB at 150 us": (
+            sfn_echo(noisy(), 150.0, -2.0, phase=1.1), (69.1, 77.1)),
+        "TU6 static": (multipath(noisy(), TU6,
+                                 rng=np.random.default_rng(11)), (0.7, 1.8)),
+        "TU6 10 Hz fading + 300 Hz": (carrier_offset(multipath(
+            awgn(x, 24.0, np.random.default_rng(5)), TU6, doppler_hz=10.0,
+            rng=np.random.default_rng(11)), 300.0), None),
+        "RA4": (multipath(noisy(), RA4, rng=np.random.default_rng(2)),
+                None),
+    }
+    for what, (y, window) in cases.items():
+        rx, eti = _card_rx(y)
+        got = b"".join(f.streams[1].data for f in EtiParser().feed(
+            b"".join(eti)) if 1 in f.streams)
+        if len(got) < 4000 or want[:len(got)] != got:
+            raise AssertionError(f"{what}: sub-channel 1 not bit-exact "
+                                 f"({len(got)} bytes)")
+        last = rx.stats[-1]
+        if last.fib_crc_bad:
+            raise AssertionError(f"{what}: FIB CRC failures")
+        ds = last.delay_spread_us
+        print(f"{what}: {len(got)} payload bytes exact, delay spread "
+              f"{ds:.3f} us" + (f" (window {window[0]}-{window[1]})"
+                                if window else ""))
+        if window and not window[0] < ds < window[1]:
+            raise AssertionError(f"{what}: delay spread {ds} us")
+
+
+def _impaired_span_check() -> None:
+    """The 2 x 4 span and an 8-stream channel batch under TU6, 2.5
+    carriers, 50 ppm and AWGN, with the PRS search at ``IMP_SEARCH``."""
+    ens = S.closed_loop_ensemble()
+    n_ch, n_time, f_own, warm = 2, 4, TB_FRAMES, TB_WARMUP
+    g0 = warm + 1
+    x, payload = S.modulate(ens, g0 + n_time * f_own + 1,
+                            np.random.default_rng(21))
+    x = S.impaired_span_signal(x, 42)
+    lh, rh = halo_sizes(warm)
+    s0, sl = g0 * FRAME_SIZE, n_time * f_own * FRAME_SIZE
+
+    def tile(a):
+        return torch.from_numpy(np.ascontiguousarray(
+            np.broadcast_to(a, (n_ch, a.size)))).cuda()
+
+    mesh = make_receiver_mesh(n_channels=n_ch, n_time=n_time,
+                              devices=[torch.device("cuda", 0)] * 8)
+    fn = timeblock_receiver(mesh, ens, frames_per_shard=f_own,
+                            warmup_frames=warm, search=IMP_SEARCH)
+    _reset_counts()
+    out = to_host(fn(tile(x[s0:s0 + sl]), tile(x[s0 - lh:s0]),
+                     tile(x[s0 + sl:s0 + sl + rh]), g0))
+    _launched_per_step("impaired span", _counts(), 1)
+    cfo = out["cfo_carriers"].ravel()
+    truth = S.SPAN_CFO_HZ / 1000.0
+    if np.abs(cfo - truth).max() >= 0.15 or np.ptp(cfo) >= 0.1:
+        raise AssertionError(f"impaired span: per-shard CFO {cfo}")
+    if not crc16_ok_batch(out["fib_bytes"].reshape(-1, 32)).all():
+        raise AssertionError("impaired span: FIB CRC failures")
+    n_rows = n_time * f_own * 4
+    for c in range(n_ch):
+        for j in range(n_rows):
+            n = g0 * 4 + j - 15
+            if n >= 0 and (out["subch"]["1"][c, j].tobytes()
+                           != payload[1][n].tobytes()):
+                raise AssertionError(f"impaired span: channel {c} row {j} "
+                                     f"differs from the modulator's")
+    print(f"impaired span (TU6, {truth} carriers, {S.SPAN_PPM:g} ppm, 22 "
+          f"dB; {n_ch} x {n_time} on cuda:0, search {IMP_SEARCH}): one K1 "
+          f"and one K2 launch, every FIB CRC good, all {n_ch} x {n_rows} "
+          f"rows the modulator's; per-shard CFO "
+          f"{cfo.min():.4f}-{cfo.max():.4f} carriers (spread "
+          f"{np.ptp(cfo):.4f})")
+
+    n_frames = 6
+    xs, payloads = [], []
+    for c in range(IMP_STREAMS):
+        y, p = S.modulate(ens, n_frames + 2,
+                          np.random.default_rng(300 + c))
+        xs.append(S.impaired_span_signal(y, 500 + c)[
+            :block_samples(n_frames)])
+        payloads.append(p)
+    nb = ens.subchannel(1).profile.tx_bits
+    _reset_counts()
+    out, _, _ = channel_parallel_block(
+        torch.from_numpy(np.stack(xs)).cuda(),
+        {"1": torch.zeros((IMP_STREAMS, 16, nb), device="cuda")},
+        torch.tensor(0, dtype=torch.int32, device="cuda"), ensemble=ens,
+        n_frames=n_frames, search=IMP_SEARCH,
+        mesh=make_receiver_mesh(n_channels=IMP_STREAMS, n_time=1,
+                                devices=[torch.device("cuda", 0)]
+                                * IMP_STREAMS))
+    out = to_host(out)
+    _launched_per_step("impaired batch", _counts(), 1)
+    cfo = out["cfo_carriers"]
+    if np.abs(cfo - truth).max() >= 0.15:
+        raise AssertionError(f"impaired batch: CFOs {cfo}")
+    for c in range(IMP_STREAMS):
+        for j in range(15, n_frames * 4):
+            if (out["subch"]["1"][c, j].tobytes()
+                    != payloads[c][1][j - 15].tobytes()):
+                raise AssertionError(f"impaired batch: stream {c} row {j} "
+                                     f"differs from the modulator's")
+    print(f"impaired batch: {IMP_STREAMS} streams, each its own TU6 and "
+          f"noise, one {n_frames}-frame channel_parallel_block: one K1 and "
+          f"one K2 launch, rows 15-{n_frames * 4 - 1} the modulator's; CFO "
+          f"{cfo.min():.4f}-{cfo.max():.4f} carriers")
+
+
+def _soak_check(card: str) -> None:
+    """60 s of stream in ragged chunks through one receiver on the card:
+    payloads, continuity, host-state bounds, one K1/K2 launch per device
+    step, and no growth of the card's allocated memory."""
+    t0 = time.perf_counter()
+    x, payload = S.modulate(S.closed_loop_ensemble(), SOAK_FRAMES,
+                            np.random.default_rng(42))
+    x = awgn(carrier_offset(x, 180.0), 14.0, np.random.default_rng(7))
+    t_mod = time.perf_counter() - t0
+    rx = DabReceiver(n_frames=8, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    eti, mem = [], []           # (device steps, memory_allocated) from 10
+    t0 = time.perf_counter()
+    for pos in range(0, x.size, SOAK_STEP):
+        eti += rx.feed(x[pos:pos + SOAK_STEP])
+        if rx.device_steps >= 10:
+            mem.append((rx.device_steps, torch.cuda.memory_allocated()))
+    wall = time.perf_counter() - t0
+    mem_10, mem_end = mem[0], mem[-1][1]
+    mem_mid = mem[len(mem) // 2]
+    peak = torch.cuda.max_memory_allocated()
+    _launched_per_step("soak", _counts(), rx.device_steps)
+    n = S.check_eti_payloads(eti, payload, rx._activation_cif)
+    frames = list(EtiParser().feed(b"".join(eti)))
+    if n < (SOAK_FRAMES - 30) * MODE_I.n_cifs:
+        raise AssertionError(f"soak: only {n} ETI frames")
+    if any(f.fct != k % 250 for k, f in enumerate(frames)):
+        raise AssertionError("soak: FCT not continuous")
+    if (len(rx._fib_fifo) > rx.MAX_PENDING_CIFS + 64
+            or len(rx.stats) > rx.MAX_STATS
+            or sum(len(v) for v in rx._subch_fifo.values())
+            > rx.MAX_PENDING_CIFS + 64):
+        raise AssertionError("soak: host state past its bounds")
+    if any(s.fib_crc_bad for s in rx.stats[2:]):
+        raise AssertionError("soak: FIB CRC failures after the second "
+                             "block")
+    if mem_end > mem_10[1] + SOAK_MEM_SLACK:
+        raise AssertionError(f"soak: memory_allocated grew from "
+                             f"{mem_10[1]} after device step {mem_10[0]} "
+                             f"to {mem_end}")
+    air = x.size / (SAMPLE_RATE_MSPS * 1e6)
+    print(f"soak: {SOAK_FRAMES} frames ({air:.1f} s of air, {t_mod:.1f} s "
+          f"to modulate) in chunks of {SOAK_STEP} samples through "
+          f"DabReceiver(n_frames=8, device='cuda'): {n} ETI frames, 0 "
+          f"payload mismatches, FCT continuous, host state within its "
+          f"bounds, K1/K2 once per each of {rx.device_steps} device steps")
+    print(f"soak: {wall:.3f} s = {air / wall:.2f}x real time (host clock, "
+          f"feed included); memory_allocated {mem_10[1] / 2**20:.3f} MiB "
+          f"after device step {mem_10[0]}, {mem_mid[1] / 2**20:.3f} after "
+          f"step {mem_mid[0]}, {mem_end / 2**20:.3f} after the last "
+          f"({min(m for _, m in mem) / 2**20:.3f}-"
+          f"{max(m for _, m in mem) / 2**20:.3f} after each feed from step "
+          f"10 on); max_memory_allocated {peak / 2**20:.1f} MiB on {card}")
+
+
+def impairments_phase(card: str) -> None:
+    """The receiver under the robustness set's impairments on the card."""
+    _sync_loss_check()
+    _cfo_check()
+    _multipath_check()
+    _impaired_span_check()
+    _soak_check(card)
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -1590,6 +1916,7 @@ def main(argv: list[str]) -> int:
     phase("span across processes", multiprocess_phase, tb, card)
     phase("lab chain", lab_chain_phase, card)
     phase("BER waterfall", ber_phase, card)
+    phase("impairments", impairments_phase, card)
     print(f"all phases: {time.perf_counter() - t_start:.1f} s (build "
           f"included)")
     # Each kernel's launches come from the path that drives it: K1/K2 from

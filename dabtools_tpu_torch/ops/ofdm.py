@@ -17,7 +17,7 @@ import math
 
 import torch
 
-from dabtools_tpu_torch.constants import MODE_I, Mode
+from dabtools_tpu_torch.constants import MODE_I, SAMPLE_RATE, Mode
 from dabtools_tpu_torch.ops.slicing import window_starts
 from dabtools_tpu_torch.ops.sync import _rot
 from dabtools_tpu_torch.tables.freq_interleave import freq_interleave_map
@@ -141,3 +141,10 @@ def demod_frames(x: torch.Tensor, frame_starts: torch.Tensor,
                            / scale[..., 0, 0]),
     }
     return soft, diag
+
+
+def cfo_from_hz(cfo_hz, mode: Mode = MODE_I):
+    """Convert Hz to carrier-spacing units used by ``gather_symbol_windows``
+    (on the host: a Python scalar or a NumPy array in, the same out)."""
+    carrier_spacing = SAMPLE_RATE / mode.fft_size
+    return cfo_hz / carrier_spacing

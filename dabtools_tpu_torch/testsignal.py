@@ -2,7 +2,8 @@
 impaired u8 IQ (optionally with TII), at another sample rate, or several
 such muxes in one wideband Band III capture; the closed-loop ensemble of
 the BER sweep; a hard channel batch (streams whose integer CFOs and
-sample-clock drifts differ); the mixed mux (EEP, UEP and a DAB+
+sample-clock drifts differ); the robustness set's sync-loss stream and
+impaired-span chain; the mixed mux (EEP, UEP and a DAB+
 sub-channel of real superframes); the everything-mux's configuration
 for the port's ``dabmux``; and coded Viterbi lanes with their messages.
 
@@ -37,6 +38,7 @@ from dabtools_tpu_torch.fic.config import (
 from dabtools_tpu_torch.fic.fig import build_fibs_for_ensemble
 from dabtools_tpu_torch.mod.convcode import conv_encode
 from dabtools_tpu_torch.mod.impairments import (
+    MultipathChannel,
     awgn,
     carrier_offset,
     multipath,
@@ -175,6 +177,40 @@ def resample_ppm(x: np.ndarray, ppm: float) -> np.ndarray:
     re = np.interp(t_out, np.arange(x.size), x.real)
     im = np.interp(t_out, np.arange(x.size), x.imag)
     return (re + 1j * im).astype(np.complex64)
+
+
+def sync_loss_stream():
+    """The sync-loss stream of the JAX package's robustness tests: 8
+    frames of the closed-loop ensemble (seed 5), 4 frames of complex
+    Gaussian noise at 0.3 per component (seed 5) and 8 more frames (seed
+    6).  Returns (complex64 samples, the set of every sub-channel 1
+    payload row sent, as bytes)."""
+    ens = closed_loop_ensemble()
+    x1, p1 = modulate(ens, 8, np.random.default_rng(5))
+    rng = np.random.default_rng(5)
+    n = 4 * C.MODE_I.frame_size
+    gap = (0.3 * (rng.normal(size=n) + 1j * rng.normal(size=n))).astype(
+        np.complex64)
+    x2, p2 = modulate(ens, 8, np.random.default_rng(6))
+    sent = {r.tobytes() for r in p1[1]} | {r.tobytes() for r in p2[1]}
+    return np.concatenate([x1, gap, x2]), sent
+
+
+SPAN_CFO_HZ = 2500.0            # the impaired span's CFO: 2.5 carriers
+SPAN_PPM = 50.0                 # ... and its sample-clock drift
+
+
+def impaired_span_signal(x: np.ndarray, seed: int, snr_db: float = 22.0,
+                         doppler_hz: float = 0.0) -> np.ndarray:
+    """The impairment chain of the JAX package's impaired-sharding tests:
+    TU6 (fading at ``doppler_hz``; taps from seed + 1), a CFO of
+    ``SPAN_CFO_HZ``, a drift of ``SPAN_PPM`` and AWGN at ``snr_db``
+    (seed)."""
+    rng = np.random.default_rng(seed)
+    ch = MultipathChannel(doppler_hz=doppler_hz,
+                          rng=np.random.default_rng(seed + 1))
+    y = resample_ppm(carrier_offset(ch(x), SPAN_CFO_HZ), SPAN_PPM)
+    return awgn(y, snr_db, rng)
 
 
 # The hard batch: integer CFO bins -2, 0 and +3, drifts of -50, 0 and +50

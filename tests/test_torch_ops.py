@@ -25,6 +25,7 @@ from dabtools_tpu.ops import sync as jsync
 from dabtools_tpu.ops.bits import pack_bits as jpack_bits
 from dabtools_tpu.ops.slicing import window_slices as jwindow_slices
 from dabtools_tpu.tables.puncturing import FIC_PROFILE, eep_profile
+from dabtools_tpu_torch import constants as tC
 from dabtools_tpu_torch.ops import fec, ofdm, sync
 from dabtools_tpu_torch.ops.bits import pack_bits
 from dabtools_tpu_torch.ops.slicing import window_slices
@@ -219,6 +220,42 @@ def test_demod_frames(impaired, cfo, drift):
     np.testing.assert_allclose(diag["carrier_mag_mean"].numpy(),
                                np.asarray(rdiag["carrier_mag_mean"]),
                                rtol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["I", "II", "III", "IV"])
+def test_cfo_from_hz_matches_jax(mode):
+    """Hz to carrier spacings, on the host, for a scalar and an array:
+    equal to the JAX package's value in every mode."""
+    hz = np.array([-4300.0, -1499.0, 0.0, 420.0, 2500.0, 12345.6])
+    for v in (420.0, -3500.0, hz):
+        got = ofdm.cfo_from_hz(v, tC.MODES[mode])
+        want = jofdm.cfo_from_hz(v, C.MODES[mode])
+        assert type(got) is type(want)
+        np.testing.assert_array_equal(got, want)
+    assert ofdm.cfo_from_hz(1000.0) == 1000.0 / (C.SAMPLE_RATE / 2048)
+
+
+def test_demod_with_cfo_correction():
+    """``tests/test_ops.py``'s CFO-corrected demod (420 Hz, 22 dB) with
+    ``cfo_norm=cfo_from_hz(420.0)``: soft bits within the stated
+    tolerance of the JAX demod, and that test's raw bit-error bound."""
+    from dabtools_tpu.mod.convcode import conv_encode
+    from dabtools_tpu.utils.prbs import scramble_bits
+    from tests.test_ops import _modulated_frames
+    x, fibs, _, _ = _modulated_frames(1, seed=4)
+    x = awgn(carrier_offset(x, 420.0), 22, np.random.default_rng(11))
+    starts = np.array([0], dtype=np.int32)
+    rsoft, _ = jofdm.demod_frames(jnp.asarray(x), jnp.asarray(starts),
+                                  cfo_norm=jofdm.cfo_from_hz(420.0))
+    soft, _ = ofdm.demod_frames(_t(x), _t(starts),
+                                cfo_norm=ofdm.cfo_from_hz(420.0))
+    np.testing.assert_allclose(soft.numpy(), np.asarray(rsoft),
+                               atol=SOFT_ATOL, rtol=SOFT_RTOL)
+    mask = FIC_PROFILE.mask().astype(bool)
+    triplet = np.unpackbits(fibs[0, :3].reshape(-1))
+    expect = conv_encode(scramble_bits(triplet))[mask][:3072]
+    got = (soft[0, 0, :].numpy() < 0).astype(np.uint8)
+    assert int(np.sum(got[:expect.size] != expect)) < 20
 
 
 def test_gather_symbol_windows_short_input_edge_pad():
