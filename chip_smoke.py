@@ -43,8 +43,7 @@ of which raises on failure:
    count phase 8's batch is held against; it must stay within 5 of the
    403 it had before the demod chain took a stream axis) and of a 16-frame
    u8 block.  Then one warm ``process_block`` under PyTorch's sync debug
-   mode 'error' (nothing inside may wait for the device), and the
-   steady-state ms/block and real-time multiple.
+   mode 'error' (nothing inside may wait for the device).
 5. TII: the flagship with TII (sub id 7, main id 31) in its null symbols,
    impaired to u8 as in phase 4, through ``DabReceiver(n_frames=16,
    tii=True)``: ``rx.tii()`` must give main id 31 and sub id 7, every ETI
@@ -243,7 +242,6 @@ E2E_FRAMES = 100
 SNR_DB = 20.0
 CFO_HZ = 300.0
 TIMING_OFFSET = 3000
-BLOCK_SECONDS = 1.536           # 16 Mode I frames of 96 ms
 SAMPLE_RATE_MSPS = 2.048
 R2_LANES = 640
 R2_INFO_BITS = 3073             # trellis length 3079: odd, so radix-2
@@ -665,6 +663,7 @@ def end_to_end_phase(rng) -> dict:
     _launched_per_step("end to end", launches, rx.device_steps)
     print(f"launches: {launches} in {rx.device_steps} device steps")
     single_stream_ops(u8, ens)
+    sync_free_check(rx, u8[: 2 * block_samples(BLOCK_FRAMES)])
     return {"launches": launches, "u8": u8, "ensemble": ens}
 
 
@@ -712,38 +711,6 @@ def sync_free_check(rx, block_u8: np.ndarray) -> None:
                    x, rx._rings, rx._cif_count,
                    ensemble=rx._decode.decode_config(), mode=rx.mode,
                    n_frames=rx.n_frames, tii=rx._tii_enabled))
-
-
-def steady_state_phase(u8: np.ndarray, ens, card: str) -> float:
-    """Median ms per block of a receiver already configured for ``ens``,
-    after one warm-up block; host clock around each whole block (each
-    ends in the block's device->host copy and includes its ETI
-    assembly)."""
-    rx = DabReceiver(n_frames=BLOCK_FRAMES, ensemble=ens, device="cuda")
-    first = 2 * block_samples(BLOCK_FRAMES)
-    rx.feed(u8[:first])
-    sync_free_check(rx, u8[first: 2 * first])
-    walls = []
-    one_block = rx._process_one_block
-
-    def timed(x, _replay=False):
-        t0 = time.perf_counter()
-        eti = one_block(x, _replay)
-        walls.append(time.perf_counter() - t0)
-        return eti
-
-    rx._process_one_block = timed
-    rx.feed(u8[first:])
-    if not walls:
-        raise AssertionError("no steady-state blocks")
-    ms = statistics.median(walls) * 1e3
-    rt = BLOCK_SECONDS * 1e3 / ms
-    print(f"steady state: median {ms:.2f} ms/block over {len(walls)} "
-          f"blocks of {BLOCK_FRAMES} frames (min {min(walls) * 1e3:.2f}, "
-          f"max {max(walls) * 1e3:.2f}) = {rt:.1f}x real time, "
-          f"{SAMPLE_RATE_MSPS * rt:.1f} Msamples/s "
-          f"(u8 input, host ETI assembly included) on {card}")
-    return ms
 
 
 def tii_phase(rng, u8_no_tii: np.ndarray) -> None:
@@ -1904,8 +1871,6 @@ def main(argv: list[str]) -> int:
     r2 = phase("radix-2", radix2_phase, rng)
     oh = phase("one-hot", onehot_phase, kern)
     e2e = phase("end-to-end", end_to_end_phase, rng)
-    phase("steady state", steady_state_phase, e2e["u8"], e2e["ensemble"],
-          card)
     phase("TII", tii_phase, rng, e2e["u8"])
     phase("resampler", resampler_phase, rng, card)
     phase("wideband + dabscan", wideband_phase, rng, card)

@@ -33,6 +33,7 @@ from dabtools_tpu_torch.models.receiver import DabReceiver
 from dabtools_tpu_torch.ops.fir import Channelizer
 from dabtools_tpu_torch.ops.resample import Resampler
 from dabtools_tpu_torch.tables.bandiii import blocks_within
+from dabtools_tpu_torch.utils import spans
 
 log = logging.getLogger("dabtools_tpu_torch.dab2eti")
 
@@ -154,6 +155,17 @@ def _wideband(args, mode, n_frames) -> int:
     return 0 if n_found else 1
 
 
+def _log_spans(done: list) -> None:
+    """One line for a chunk's spans: each layer's self ms, then the MB
+    its copy spans moved."""
+    if not done:
+        return
+    ms = spans.self_ns(done)
+    log.info("spans ms: %s; copied %.3f MB",
+             " ".join(f"{k}={v / 1e6:.3f}" for k, v in ms.items()),
+             sum(s[4] for s in done) / 1e6)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="dab2eti", description=__doc__,
@@ -196,7 +208,9 @@ def main(argv=None) -> int:
     p.add_argument("--output", "-o", default="-",
                    help="ETI output path ('-' = stdout)")
     p.add_argument("--stats", action="store_true",
-                   help="log per-block sync/CRC stats to stderr")
+                   help="log per-block sync/CRC stats to stderr, and per "
+                        "chunk the host ms of each layer's span and the "
+                        "MB copied to and from the device")
     p.add_argument("--stats-json", default=None, metavar="PATH",
                    help="append one JSON object per block (sync confidence, "
                         "CFO, CRC rates, Viterbi metrics) to PATH")
@@ -284,6 +298,8 @@ def main(argv=None) -> int:
         samples = live_blocks()
     else:
         samples = iter_samples(args.input, args.format)
+    if args.stats:
+        spans.enable()
     n_eti = 0
     try:
         for chunk in samples:
@@ -300,15 +316,20 @@ def main(argv=None) -> int:
                 else:
                     out.write(frame)
                 n_eti += 1
-            if args.stats and rx.stats:
-                s = rx.stats[-1]
-                log.info("cif=%d null@%d snr=%.1fdB cfo=%+.1fHz "
-                         "delay_spread=%.1fus fib_ok=%d fib_bad=%d",
-                         s.cif_count, s.null_start, s.snr_db,
-                         s.cfo_carriers * 1000.0, s.delay_spread_us,
-                         s.fib_crc_ok, s.fib_crc_bad)
+            if args.stats:
+                if rx.stats:
+                    s = rx.stats[-1]
+                    log.info("cif=%d null@%d snr=%.1fdB cfo=%+.1fHz "
+                             "delay_spread=%.1fus fib_ok=%d fib_bad=%d",
+                             s.cif_count, s.null_start, s.snr_db,
+                             s.cfo_carriers * 1000.0, s.delay_spread_us,
+                             s.fib_crc_ok, s.fib_crc_bad)
+                _log_spans(spans.drain())
         out.flush()
     finally:
+        if args.stats:
+            spans.disable()
+            spans.drain()
         if sdr is not None:
             sdr.close()
             if sdr.dropped_bytes:

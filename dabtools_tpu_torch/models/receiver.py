@@ -52,6 +52,7 @@ from dabtools_tpu_torch.ops.sync import (
 from dabtools_tpu_torch.ops.tii import solve_tii, tii_powers_at
 from dabtools_tpu_torch.ops.viterbi import viterbi_decode_ragged
 from dabtools_tpu_torch.tables.puncturing import FIC_PROFILE
+from dabtools_tpu_torch.utils import spans
 from dabtools_tpu_torch.utils.crc import crc16_ok_batch
 
 log = logging.getLogger("dabtools_tpu_torch.receiver")
@@ -240,11 +241,15 @@ def pipeline_core(x, frame_start_guesses, rings, cif_count, *,
     Returns ``(out, rings', cif_count')``.
     """
     n_frames = frame_start_guesses.shape[-1]
-    out, new_rings, jobs, groups = pre_viterbi(
-        x, frame_start_guesses, rings, cif_count, ensemble=ensemble,
-        mode=mode, search=search, max_int_cfo=max_int_cfo,
-        sync_diag=sync_diag, probe_subs=probe_subs)
-    post_viterbi(out, groups, viterbi_decode_ragged(jobs), n_frames, mode)
+    with spans.span("enqueue.demod"):
+        out, new_rings, jobs, groups = pre_viterbi(
+            x, frame_start_guesses, rings, cif_count, ensemble=ensemble,
+            mode=mode, search=search, max_int_cfo=max_int_cfo,
+            sync_diag=sync_diag, probe_subs=probe_subs)
+    with spans.span("enqueue.viterbi"):
+        decoded = viterbi_decode_ragged(jobs)
+    with spans.span("enqueue.pack"):
+        post_viterbi(out, groups, decoded, n_frames, mode)
     return out, new_rings, cif_count + n_frames * mode.n_cifs
 
 
@@ -263,23 +268,28 @@ def process_block(x, rings, cif_count, *, ensemble: Ensemble | None,
 
     ``x`` may be complex64 samples OR raw uint8 offset-128 interleaved IQ
     (the RTL-SDR wire format, 2 bytes/sample), converted on the device, so
-    a u8 source ships 4x fewer bytes to the device.
+    a u8 source ships 4x fewer bytes to the device.  Span ``rx.enqueue``
+    (the launches), with ``enqueue.sync`` and :func:`pipeline_core`'s
+    stages inside it.
     """
-    if x.dtype == torch.uint8:
-        f = (x.to(torch.float32) - 128.0) / 64.0
-        x = torch.complex(f[0::2], f[1::2])
-    sync = coarse_null_sync(x, mode)
-    ns = sync["null_start"]
-    frame_off = torch.arange(n_frames, dtype=torch.int32,
-                             device=x.device) * mode.frame_size
-    sync_diag = {"null_start": ns, "null_ratio": sync["null_ratio"]}
-    if tii:
-        t = tii_powers_at(x, ns, n_frames, mode)
-        sync_diag.update(tii_powers=t["powers"], tii_floor=t["floor"])
-    return pipeline_core(
-        x, ns + frame_off, rings, cif_count, ensemble=ensemble, mode=mode,
-        search=search, max_int_cfo=max_int_cfo, sync_diag=sync_diag,
-        probe_subs=probe_subs)
+    with spans.span("rx.enqueue"):
+        with spans.span("enqueue.sync"):
+            if x.dtype == torch.uint8:
+                f = (x.to(torch.float32) - 128.0) / 64.0
+                x = torch.complex(f[0::2], f[1::2])
+            sync = coarse_null_sync(x, mode)
+            ns = sync["null_start"]
+            frame_off = torch.arange(n_frames, dtype=torch.int32,
+                                     device=x.device) * mode.frame_size
+            sync_diag = {"null_start": ns, "null_ratio": sync["null_ratio"]}
+            if tii:
+                t = tii_powers_at(x, ns, n_frames, mode)
+                sync_diag.update(tii_powers=t["powers"],
+                                 tii_floor=t["floor"])
+        return pipeline_core(
+            x, ns + frame_off, rings, cif_count, ensemble=ensemble,
+            mode=mode, search=search, max_int_cfo=max_int_cfo,
+            sync_diag=sync_diag, probe_subs=probe_subs)
 
 
 _NP_DTYPES = {torch.float32: np.float32, torch.int32: np.int32,
@@ -289,7 +299,8 @@ _NP_DTYPES = {torch.float32: np.float32, torch.int32: np.int32,
 def to_host(tree: dict) -> dict:
     """Copy a (nested) dict of device tensors to NumPy arrays in ONE
     device->host transfer: every leaf is viewed as bytes, concatenated on
-    the device, copied once, and split again on the host."""
+    the device, copied once, and split again on the host.  Spans
+    ``rx.wait`` and ``rx.d2h`` (see :func:`spans.download`)."""
     leaves = []
 
     def collect(node):
@@ -302,8 +313,9 @@ def to_host(tree: dict) -> dict:
     collect(tree)
     if not leaves:
         return {}
-    flat = torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8)
-                      for t in leaves]).cpu().numpy()
+    flat = spans.download(
+        torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8)
+                   for t in leaves]), "rx.wait", "rx.d2h")
     it = iter(leaves)
     pos = 0
 
@@ -462,31 +474,33 @@ class DabReceiver:
 
         ``samples``: complex64, or raw uint8 offset-128 interleaved IQ
         (converted on the device).  Do not mix formats on one receiver.
+        Span ``rx.feed``, the root of the call's spans.
         """
-        s = np.asarray(samples)
-        if s.dtype == np.uint8:
-            eps = 2                    # buffer elements per sample
-        else:
-            s = np.asarray(s, dtype=np.complex64)
-            eps = 1
-        if self._chunks and self._chunks[0].dtype != s.dtype:
-            raise ValueError("cannot mix u8 and complex64 feeds")
-        if s.size:
-            self._chunks.append(s)
-            self._buffered += s.size
-        eti: list[bytes] = []
-        need = block_samples(self.n_frames, self.mode) * eps
-        while self._buffered >= need:
-            eti.extend(self._process_one_block(self._peek(need)))
-            # Advance relative to the *measured* null position so sample-
-            # clock drift cannot skip/repeat a frame; keep a fixed
-            # pre-roll so the next block's coarse argmin lands on the
-            # immediately-next null dip.
-            ns = self.stats[-1].null_start if self.stats else 0
-            advance = max(ns + self.n_frames * self.mode.frame_size
-                          - self.PREROLL, 1)
-            self._drop(min(advance * eps, self._buffered))
-        return eti
+        with spans.span("rx.feed"):
+            s = np.asarray(samples)
+            if s.dtype == np.uint8:
+                eps = 2                # buffer elements per sample
+            else:
+                s = np.asarray(s, dtype=np.complex64)
+                eps = 1
+            if self._chunks and self._chunks[0].dtype != s.dtype:
+                raise ValueError("cannot mix u8 and complex64 feeds")
+            if s.size:
+                self._chunks.append(s)
+                self._buffered += s.size
+            eti: list[bytes] = []
+            need = block_samples(self.n_frames, self.mode) * eps
+            while self._buffered >= need:
+                eti.extend(self._process_one_block(self._peek(need)))
+                # Advance relative to the *measured* null position so
+                # sample-clock drift cannot skip/repeat a frame; keep a
+                # fixed pre-roll so the next block's coarse argmin lands
+                # on the immediately-next null dip.
+                ns = self.stats[-1].null_start if self.stats else 0
+                advance = max(ns + self.n_frames * self.mode.frame_size
+                              - self.PREROLL, 1)
+                self._drop(min(advance * eps, self._buffered))
+            return eti
 
     def pending_samples(self) -> np.ndarray:
         """Buffered-but-unprocessed samples (e.g. to carry across a
@@ -497,19 +511,20 @@ class DabReceiver:
 
     def _peek(self, n: int) -> np.ndarray:
         """First ``n`` buffered samples (zero-copy when one chunk covers
-        them; otherwise one block-sized gather)."""
+        them; otherwise one block-sized gather, span ``rx.ring``)."""
         first = self._chunks[0]
         if first.size >= n:
             return first[:n]
-        out = np.empty(n, dtype=first.dtype)
-        pos = 0
-        for c in self._chunks:
-            take = min(n - pos, c.size)
-            out[pos:pos + take] = c[:take]
-            pos += take
-            if pos == n:
-                break
-        return out
+        with spans.span("rx.ring"):
+            out = np.empty(n, dtype=first.dtype)
+            pos = 0
+            for c in self._chunks:
+                take = min(n - pos, c.size)
+                out[pos:pos + take] = c[:take]
+                pos += take
+                if pos == n:
+                    break
+            return out
 
     def _drop(self, n: int) -> None:
         """Discard the first ``n`` buffered samples (view slicing only)."""
@@ -662,21 +677,33 @@ class DabReceiver:
         return identified
 
     def _upload(self, x: np.ndarray) -> torch.Tensor:
-        a = x if x.flags.writeable else x.copy()
-        return torch.from_numpy(a).to(self.device)
+        if not x.flags.writeable:
+            with spans.span("rx.ring"):
+                x = x.copy()
+        with spans.span("rx.h2d", x.nbytes):
+            return torch.from_numpy(x).to(self.device)
 
     def _process_one_block(self, x: np.ndarray,
-                           _replay: bool = False) -> list[bytes]:
-        """``_replay``: this is the second pass over the SAME block
-        (acquisition, reconfiguration, or UEP-autoprobe
+                           _replay: str | None = None) -> list[bytes]:
+        """``_replay``: this is the second pass over the SAME block, and
+        its cause (``"acquire"``, ``"reconfig"`` or ``"autoprobe"``
         re-specialization).  Stats/JSONL records and FIG feeding are
         skipped on replays; the ETI-side state is still rebuilt because
-        _activate resets it."""
+        _activate resets it.  Span ``rx.block``, or ``rx.block.<cause>``
+        for a replay (inside the pass that replays)."""
+        with spans.span(f"rx.block.{_replay}" if _replay else "rx.block"):
+            return self._block(x, _replay)
+
+    def _block(self, x: np.ndarray, _replay: str | None) -> list[bytes]:
         cif0 = self._cif_host
         # Pre-block deinterleaver state, kept for the autoprobe replay.
         pre_rings = dict(self._rings) if self._rings else {}
         ens = (self._decode.decode_config()
                if self.ensemble is not None else None)
+        # the upload is a temporary, freed when process_block returns: the
+        # caching allocator then hands its memory to the next upload (a
+        # replay's included), and the device's memory layout, which the
+        # kernels' times depend on, stays as it is without spans
         out_dev, rings, cif_next = process_block(
             self._upload(x), self._rings or {}, self._cif_count,
             ensemble=ens, mode=self.mode, n_frames=self.n_frames,
@@ -695,44 +722,45 @@ class DabReceiver:
 
         # FIBs arrive packed from the device: (B, 12, 32) uint8.  All CRCs
         # for the block are checked in ONE native call.
-        fib_bytes = out["fib_bytes"]
-        fib_ok = crc16_ok_batch(
-            fib_bytes.reshape(-1, C.FIB_BYTES)).reshape(
-            self.n_frames, self.mode.n_fibs)
-        n_ok = int(fib_ok.sum())
-        n_bad = fib_ok.size - n_ok
-        fibs_per_cif = self.mode.n_fibs // self.mode.n_cifs
-        # Per-frame sync confidence drives the ETI ERR byte: bad PRS
-        # correlation or a vanished null dip degrade the frame; FIB CRC
-        # failures degrade the specific CIF.
-        null_ratio = float(out["null_ratio"])
-        prs_peak = out["prs_peak"]
-        for f in range(self.n_frames):
-            frame_sync_bad = (prs_peak[f] < 0.2) or (null_ratio > 0.5)
-            for i in range(self.mode.n_fibs):
-                if fib_ok[f, i] and not _replay:
-                    fib = fib_bytes[f, i].tobytes()
-                    if fib in self._fib_cache:
-                        self._fig.tick(self._fib_cache[fib])
-                    else:
-                        n_figs = self._fig.feed_fib(fib)
-                        self._fib_cache[fib] = n_figs
-                        if len(self._fib_cache) > 4096:
-                            self._fib_cache.clear()
-            for c in range(self.mode.n_cifs):
-                n = cif0 + f * self.mode.n_cifs + c
-                triplet = [fib_bytes[f, fibs_per_cif * c + k].tobytes()
-                           for k in range(fibs_per_cif)]
-                crc_bad = int(
-                    (~fib_ok[f, fibs_per_cif * c: fibs_per_cif * (c + 1)])
-                    .sum())
-                level = 0
-                if frame_sync_bad:
-                    level = 2
-                elif crc_bad:
-                    level = 1
-                self._fib_fifo[n] = triplet
-                self._err_level[n] = level
+        with spans.span("rx.fic"):
+            fib_bytes = out["fib_bytes"]
+            fib_ok = crc16_ok_batch(
+                fib_bytes.reshape(-1, C.FIB_BYTES)).reshape(
+                self.n_frames, self.mode.n_fibs)
+            n_ok = int(fib_ok.sum())
+            n_bad = fib_ok.size - n_ok
+            fibs_per_cif = self.mode.n_fibs // self.mode.n_cifs
+            # Per-frame sync confidence drives the ETI ERR byte: bad PRS
+            # correlation or a vanished null dip degrade the frame; FIB CRC
+            # failures degrade the specific CIF.
+            null_ratio = float(out["null_ratio"])
+            prs_peak = out["prs_peak"]
+            for f in range(self.n_frames):
+                frame_sync_bad = (prs_peak[f] < 0.2) or (null_ratio > 0.5)
+                for i in range(self.mode.n_fibs):
+                    if fib_ok[f, i] and not _replay:
+                        fib = fib_bytes[f, i].tobytes()
+                        if fib in self._fib_cache:
+                            self._fig.tick(self._fib_cache[fib])
+                        else:
+                            n_figs = self._fig.feed_fib(fib)
+                            self._fib_cache[fib] = n_figs
+                            if len(self._fib_cache) > 4096:
+                                self._fib_cache.clear()
+                for c in range(self.mode.n_cifs):
+                    n = cif0 + f * self.mode.n_cifs + c
+                    triplet = [fib_bytes[f, fibs_per_cif * c + k].tobytes()
+                               for k in range(fibs_per_cif)]
+                    crc_bad = int(
+                        (~fib_ok[f, fibs_per_cif * c: fibs_per_cif * (c + 1)])
+                        .sum())
+                    level = 0
+                    if frame_sync_bad:
+                        level = 2
+                    elif crc_bad:
+                        level = 1
+                    self._fib_fifo[n] = triplet
+                    self._err_level[n] = level
 
         if not _replay:
             self.stats.append(FrameStats(
@@ -751,7 +779,7 @@ class DabReceiver:
         if self.ensemble is None and self._fig.have_mci():
             self._set_cif(cif0)
             self._activate(self._fig.ensemble())
-            return self._process_one_block(x, _replay=True)
+            return self._process_one_block(x, _replay="acquire")
 
         # Ensemble reconfiguration (multiplex changes signalled via FIG).
         # Metadata-only changes update in place; a changed SUB-CHANNEL ORG
@@ -772,7 +800,8 @@ class DabReceiver:
                 self._set_cif(cif0)
                 self._subch_fifo.clear()
                 self._activate(new_ens)
-                return pending + self._process_one_block(x, _replay=True)
+                return pending + self._process_one_block(
+                    x, _replay="reconfig")
             else:
                 self._reconfig_candidate = new_ens.subchannels
 
@@ -806,19 +835,20 @@ class DabReceiver:
             for k, v in pre_rings.items():
                 if k in self._rings:
                     self._rings[k] = v
-            return self._process_one_block(x, _replay=True)
+            return self._process_one_block(x, _replay="autoprobe")
 
         # Sub-channel rows j correspond to logical frames cif0 + j - 15.
-        if self.ensemble is not None:
-            for s in self._decode.subchannels:
-                data = out["subch"][str(s.subchid)]
-                for j in range(data.shape[0]):
-                    n = cif0 + j - 15
-                    if n >= 0:
-                        self._subch_fifo.setdefault(
-                            s.subchid, {})[n] = data[j].tobytes()
-        eti = self._emit_eti() if self.emit_eti else []
-        self._prune(cif0)
+        with spans.span("rx.eti"):
+            if self.ensemble is not None:
+                for s in self._decode.subchannels:
+                    data = out["subch"][str(s.subchid)]
+                    for j in range(data.shape[0]):
+                        n = cif0 + j - 15
+                        if n >= 0:
+                            self._subch_fifo.setdefault(
+                                s.subchid, {})[n] = data[j].tobytes()
+            eti = self._emit_eti() if self.emit_eti else []
+            self._prune(cif0)
         return eti
 
     # Bound host-side state so long undecodable or non-emitting runs don't

@@ -15,8 +15,11 @@ the JAX module's; the device side is torch on the channelizer's device:
   filter three decimal digits.
 
 ``__call__`` takes and returns NumPy arrays: (n,) complex64 wideband
-samples in, (K, n_out) complex64 baseband out, one upload and one
-download per call.
+samples in, (K, n_out) complex64 baseband out, one upload (two for
+``fft``: the samples and the mixer phases) and one download per call.
+Spans (``utils/spans.py``): ``frontend`` around the call, and inside it
+``frontend.h2d``, ``frontend.enqueue``, ``frontend.wait`` and
+``frontend.d2h``; the rest of ``frontend`` is the host's own work.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from dabtools_tpu_torch.constants import SAMPLE_RATE
+from dabtools_tpu_torch.utils import spans
 
 
 def design_lowpass(num_taps: int, cutoff_norm: float,
@@ -131,8 +135,9 @@ class Channelizer:
         return np.exp(-2j * np.pi * p * i / q).astype(np.complex64)
 
     def _upload(self, x: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.require(x, requirements="CW")).to(
-            self.device)
+        a = np.require(x, requirements="CW")
+        with spans.span("frontend.h2d", a.nbytes):
+            return torch.from_numpy(a).to(self.device)
 
     def __call__(self, x: np.ndarray) -> np.ndarray:
         """Feed wideband samples; returns (K, n_out) baseband complex64.
@@ -140,6 +145,10 @@ class Channelizer:
         Streaming: keeps the (taps-1)-sample tail and absolute phase so
         consecutive calls are seamless.
         """
+        with spans.span("frontend"):
+            return self._call(x)
+
+    def _call(self, x: np.ndarray) -> np.ndarray:
         x = np.asarray(x, dtype=np.complex64)
         if self._tail is not None:
             x = np.concatenate([self._tail, x])
@@ -156,9 +165,11 @@ class Channelizer:
         if n_out == 0:
             return np.zeros((len(self.offsets_hz), 0), dtype=np.complex64)
         phases = tuple(int((start) % m.size) for m in self._mixers)
-        return _channelize(
-            self._upload(x[: used + self.num_taps - 1]), self._filt_dev,
-            self._mixers_dev, phases, self.decim).cpu().numpy()
+        x_dev = self._upload(x[: used + self.num_taps - 1])
+        with spans.span("frontend.enqueue"):
+            y = _channelize(x_dev, self._filt_dev, self._mixers_dev, phases,
+                            self.decim)
+        return spans.download(y, "frontend.wait", "frontend.d2h")
 
     def _call_fft(self, x: np.ndarray, start: int) -> np.ndarray:
         n, hop = self.N_FFT, self.hop
@@ -178,10 +189,13 @@ class Channelizer:
             g = math.gcd(abs(f), self.fs_in) or self.fs_in
             p, q = f // g, self.fs_in // g
             phases[k] = np.exp(-2j * np.pi * ((starts % q) * p % q) / q)
-        return _channelize_fft(
-            self._upload(x[: (n_chunks - 1) * hop + n]), self._hspec_dev,
-            self._upload(phases), self._roll_dev, n_fft=n, hop=hop,
-            decim=self.decim).cpu().numpy()
+        x_dev = self._upload(x[: (n_chunks - 1) * hop + n])
+        phases_dev = self._upload(phases)
+        with spans.span("frontend.enqueue"):
+            y = _channelize_fft(x_dev, self._hspec_dev, phases_dev,
+                                self._roll_dev, n_fft=n, hop=hop,
+                                decim=self.decim)
+        return spans.download(y, "frontend.wait", "frontend.d2h")
 
 
 def _channelize_fft(x, hspec, phases, roll, *, n_fft, hop, decim):

@@ -9,7 +9,10 @@ The host keeps the stream's index bookkeeping in int64 (``n * M`` passes
 2^31 after ~14 s of a 2.4 Msps input); the device gathers the input into
 (n_out, taps_per_phase) windows in reversed tap order and takes two real
 sums against each output phase's tap row.  Streaming keeps an input tail
-and the global output index, so chunk boundaries are seamless.
+and the global output index, so chunk boundaries are seamless.  Spans
+(``utils/spans.py``) as the channelizer's: ``frontend`` around the call,
+``frontend.h2d`` (the three uploads), ``frontend.enqueue``,
+``frontend.wait`` and ``frontend.d2h`` inside it.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 
 from dabtools_tpu_torch.constants import SAMPLE_RATE
 from dabtools_tpu_torch.ops.fir import design_lowpass
+from dabtools_tpu_torch.utils import spans
 
 
 class Resampler:
@@ -66,6 +70,10 @@ class Resampler:
         return torch.complex(yr, yi)
 
     def __call__(self, samples: np.ndarray) -> np.ndarray:
+        with spans.span("frontend"):
+            return self._call(samples)
+
+    def _call(self, samples: np.ndarray) -> np.ndarray:
         x = np.concatenate([self._tail,
                             np.asarray(samples, dtype=np.complex64)])
         base = self._consumed - self._tail.size    # global idx of x[0]
@@ -89,10 +97,14 @@ class Resampler:
         if starts.min() < 0:
             raise AssertionError("resampler window before buffer start")
         phases = (n * self.down) % self.up
-        dev = self.device
-        y = self._resample_chunk(
-            torch.from_numpy(x).to(dev), torch.from_numpy(phases).to(dev),
-            torch.from_numpy(starts).to(dev)).cpu().numpy()
+        with spans.span("frontend.h2d",
+                        x.nbytes + phases.nbytes + starts.nbytes):
+            x_dev, phases_dev, starts_dev = (
+                torch.from_numpy(a).to(self.device)
+                for a in (x, phases, starts))
+        with spans.span("frontend.enqueue"):
+            y = self._resample_chunk(x_dev, phases_dev, starts_dev)
+        y = spans.download(y, "frontend.wait", "frontend.d2h")
         self._next_out = int(n[-1]) + 1
         self._tail = x[-(t - 1):].copy()
         self._consumed = base + x.size
