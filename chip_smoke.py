@@ -52,7 +52,11 @@ of which raises on failure:
    None.
 6. resampler: the flagship at 2.4 Msps (exact spectral resample) through
    ``Resampler(2_400_000)`` and the receiver: ETI payloads must be the
-   modulator's; the resampler's input Msamples/s.
+   modulator's; the resampler's input Msamples/s; one launch of its
+   kernel (``csrc/resample.cu``) per call; the kernel against
+   ``resample_plain`` at an 8-frame block (1,843,200 inputs, 1,572,864
+   outputs), within 1e-5, and both their median times beside the
+   kernel's bytes bound.
 7. wideband + dabscan: one 8.192 Msps u8 capture at 184.5 MHz with a
    flagship-shaped mux of its own EId and label in 6A, 6C and 6D and
    nothing in 6B.  ``Channelizer`` fft against direct with TF32 on
@@ -213,6 +217,7 @@ from dabtools_tpu_torch.models.receiver import (
     process_block,
     to_host,
 )
+from dabtools_tpu_torch.ops import resample as RES
 from dabtools_tpu_torch.ops import viterbi as V
 from dabtools_tpu_torch.ops import viterbi_cuda as K
 from dabtools_tpu_torch.ops.fec import init_deinterleave_ring
@@ -746,6 +751,32 @@ def tii_phase(rng, u8_no_tii: np.ndarray) -> None:
     print("stream without TII: rx.tii() is None")
 
 
+def _resample_kernel_time(rs: Resampler) -> None:
+    """``csrc/resample.cu`` against ``resample_plain`` at the main path's
+    shape, an 8-frame block at 2.4 Msps: equal within float32 rounding,
+    then both timed, beside the kernel's bound.  Its own noise, so the
+    later phases' draws stay as they were."""
+    rng = np.random.default_rng(SEED + 6)
+    keep = rs.taps_per_phase - 1
+    n_out = 8 * FRAME_SIZE
+    n_x = n_out * rs.down // rs.up
+    tail, x = (torch.from_numpy(((rng.normal(size=n) + 1j * rng.normal(
+        size=n)) / np.sqrt(2)).astype(np.complex64)).to("cuda")
+               for n in (keep, n_x))
+    args = (tail, x, rs._bank_dev, 0, 0, n_out, rs.down)
+    got = RES.resample_cuda(*args)
+    err = float((got - RES.resample_plain(*args)).abs().max())
+    if err > 1e-5:
+        raise AssertionError(f"resample kernel: max abs error {err}")
+    ms = time_ms(lambda: RES.resample_cuda(*args), 10, KERNEL_RUN)
+    plain = time_ms(lambda: RES.resample_plain(*args), 5)
+    bound, by = _bound((n_x + keep + n_out) * 8 + rs.bank.nbytes,
+                       4 * n_out * rs.taps_per_phase)
+    print(f"resample kernel: {n_x} -> {n_out} samples {ms:.4f} ms "
+          f"(bound {bound:.4f} ms by {by}, {ms / bound:.1f}x; max abs "
+          f"error {err:.2e}), plain {plain:.4f} ms")
+
+
 def resampler_phase(rng, card: str) -> None:
     """The flagship at 2.4 Msps through the resampler and the receiver."""
     ens = S.flagship_ensemble()
@@ -754,12 +785,18 @@ def resampler_phase(rng, card: str) -> None:
     rs = Resampler(2_400_000, device="cuda")
     rs(x24[:100_000])                                # warm-up, own stream
     rs = Resampler(2_400_000, device="cuda")
+    launches = RES.resample_launches
     t0 = time.perf_counter()
     y = rs(x24)
     dt = time.perf_counter() - t0
+    launches = RES.resample_launches - launches
+    if launches != 1:
+        raise AssertionError(f"resampler: {launches} kernel launches in "
+                             f"one call")
     print(f"resampler: {x24.size} samples at 2.4 Msps -> {y.size} in "
           f"{dt * 1e3:.1f} ms = {x24.size / dt / 1e6:.1f} input Msamples/s "
           f"(host clock, upload and download included) on {card}")
+    _resample_kernel_time(rs)
     rx = DabReceiver(n_frames=BLOCK_FRAMES, device="cuda")
     eti = rx.feed(y)
     if rx.ensemble is None:

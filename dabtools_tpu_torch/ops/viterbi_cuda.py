@@ -11,6 +11,9 @@ and K4 ``traceback2`` (replaces ``::_traceback_kernel``).  Their plain
 PyTorch versions are ``ops/viterbi.py::acs4_plain``, ``::traceback4_plain``,
 ``::traceback4_onehot64_plain``, ``::acs2_plain`` and ``::traceback2_plain``.
 
+The same library holds ``csrc/resample.cu``, the resampler's kernel,
+whose wrapper is ``ops/resample.py::resample_cuda``.
+
 Each source is compiled at first use with ``nvcc`` for ``sm_90a``, all of
 them at once, and linked into one shared library with a plain C
 interface, loaded with ``ctypes``.  The library lives in
@@ -124,12 +127,14 @@ def load(so: pathlib.Path) -> ctypes.CDLL:
     """Load a library built from the kernel sources and declare its C
     interface."""
     lib = ctypes.CDLL(str(so))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for name, args in (("dab_acs4", [vp, vp, vp, vp, vp, ci, ci, vp]),
                        ("dab_traceback4", [vp, vp, ci, ci, vp]),
                        ("dab_traceback4_onehot64", [vp, vp, ci, ci, vp]),
                        ("dab_acs2", [vp, vp, vp, vp, ci, ci, vp]),
-                       ("dab_traceback2", [vp, vp, ci, ci, vp])):
+                       ("dab_traceback2", [vp, vp, ci, ci, vp]),
+                       ("dab_resample", [vp, vp, vp, vp, cl, cl, ci, ci, ci,
+                                         ci, ci, ci, vp])):
         fn = getattr(lib, name)
         fn.restype = ci
         fn.argtypes = args
@@ -137,7 +142,7 @@ def load(so: pathlib.Path) -> ctypes.CDLL:
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
-           device: torch.device) -> None:
+           device: torch.device, align: int = 16) -> None:
     if t.device != device or not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor on {device}, "
                          f"got {t.device}")
@@ -148,8 +153,8 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")
 
 
 def _launch(fn, *args, device: torch.device) -> None:

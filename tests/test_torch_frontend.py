@@ -183,6 +183,76 @@ def test_resampler_matches_jax_oneshot_and_streaming():
             jr._next_out, jr._consumed, jr._tail.size)
 
 
+N0_PAST_2_32 = 2 ** 32 + 12_345    # a global output index past 2^32
+# uneven chunks: an empty one, one shorter than the tail, single samples
+# (some of which complete no output at 75/64) and long ones
+RESAMPLER_CHUNKS = ([(0, 50_000), (50_000, 50_000), (50_000, 50_005)]
+                    + [(a, a + 1) for a in range(50_005, 50_025)]
+                    + [(50_025, 50_137), (50_137, 200_000),
+                       (200_000, 300_000)])
+
+
+def _past_2_32(*resamplers):
+    """Put each resampler at output ``N0_PAST_2_32``, having consumed
+    exactly the inputs before that output's newest one, so that its first
+    window starts at the head of the buffer (the zero tail)."""
+    for r in resamplers:
+        r._next_out = N0_PAST_2_32
+        r._consumed = N0_PAST_2_32 * r.down // r.up
+
+
+def test_resampler_window_indices_past_2_32():
+    """The plain path's phases and window starts, from the call's three
+    scalars, equal the NumPy formula over int64 output indices."""
+    r = tres.Resampler(2_400_000, device="cpu")
+    _past_2_32(r)
+    t = r.taps_per_phase
+    base = r._consumed - r._tail.size
+    for n_new in (1, 5, 50_000, 1_843_200):
+        n1, r0, s0 = r._plan(n_new)
+        n0 = r._next_out
+        n = np.arange(n0, n1 + 1, dtype=np.int64)
+        assert n1 >= n0 and n[0] * r.down > 2 ** 38
+        phases, starts = tres.window_indices(r0, s0, n.size, r.down, r.up)
+        np.testing.assert_array_equal(phases.numpy(), (n * r.down) % r.up)
+        np.testing.assert_array_equal(
+            starts.numpy(), n * r.down // r.up - base - (t - 1))
+        assert starts[0] == s0 == 0
+
+
+@pytest.mark.parametrize("rate", [2_400_000, 2_500_000])
+def test_resampler_matches_jax_past_2_32(rate):
+    """The JAX comparison at a global output index past 2^32, over uneven
+    chunks; at 2.5 Msps the bank has 512 phases."""
+    x = _unit_noise(300_000, 1)
+    jr = jres.Resampler(rate)
+    tr = tres.Resampler(rate, device="cpu")
+    _past_2_32(jr, tr)
+    sizes = []
+    for a, b in RESAMPLER_CHUNKS:
+        want, got = jr(x[a:b]), tr(x[a:b])
+        assert got.shape == want.shape and got.dtype == np.complex64
+        np.testing.assert_allclose(got, want, atol=1e-5)
+        assert (tr._next_out, tr._consumed, tr._tail.size) == (
+            jr._next_out, jr._consumed, jr._tail.size)
+        np.testing.assert_array_equal(tr._tail, jr._tail)
+        sizes.append((b - a, got.size))
+    assert (0, 0) in sizes and any(n and not m for n, m in sizes)
+    assert (5, 0) not in sizes
+
+
+def test_resample_kernel_wrapper_refuses_cpu_tensors():
+    """The kernel's wrapper never falls back: a CPU tensor raises before
+    any build or launch, and the launch counter stays."""
+    r = tres.Resampler(2_400_000, device="cpu")
+    before = tres.resample_launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tres.resample_cuda(r._tail_dev,
+                           torch.zeros(100, dtype=torch.complex64),
+                           r._bank_dev, 0, 0, 10, r.down)
+    assert tres.resample_launches == before
+
+
 def test_resampler_rejects_unrelated_rate():
     with pytest.raises(ValueError, match="interpolation factor"):
         tres.Resampler(2_400_001, device="cpu")

@@ -291,6 +291,61 @@ def test_resampler_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("rate", [2_400_000, 2_500_000, 10_000_000,
+                                  1_024_000])
+def test_resample_kernel_matches_plain(cuda, rate):
+    """``csrc/resample.cu`` against ``resample_plain`` on the same card
+    tensors: L/M = 64/75, 512/625 (a 48 KB bank, over the default shared
+    memory), 128/625 and 2/1 (interpolation), every phase offset r0, a
+    window start inside the tail and a span that ends at the last input."""
+    from dabtools_tpu_torch.ops import resample as R
+    rs = R.Resampler(rate, device=cuda)
+    up, down, keep = rs.up, rs.down, rs.taps_per_phase - 1
+    rng = np.random.default_rng(rate % 1000)
+    tail = torch.from_numpy(_unit_noise(keep, 3)).to(cuda)
+    x = torch.from_numpy(_unit_noise(200_003, 4)).to(cuda)
+    for r0, s0 in ((0, 0), (up - 1, 1), (int(rng.integers(up)), 7)):
+        # the most outputs: the last window ends at the last input
+        n_out = ((x.numel() - s0) * up - r0 - 1) // down + 1
+        before = R.resample_launches
+        got = R.resample_cuda(tail, x, rs._bank_dev, r0, s0, n_out, down)
+        want = R.resample_plain(tail, x, rs._bank_dev, r0, s0, n_out, down)
+        assert R.resample_launches == before + 1
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    with pytest.raises(ValueError, match="leave"):
+        R.resample_cuda(tail, x, rs._bank_dev, r0, s0, n_out + 1, down)
+
+
+@pytest.mark.gpu
+def test_resampler_on_card_past_2_32_counts_launches(cuda):
+    """The card's resampler against the CPU's at a global output index past
+    2^32, over uneven chunks (an empty one, one shorter than the tail,
+    single samples, some completing no output): outputs, state, and one
+    kernel launch per call with output, none for a call without."""
+    from dabtools_tpu_torch.ops import resample as R
+    x = _unit_noise(300_000, 1)
+    cpu, card = R.Resampler(2_400_000, device="cpu"), R.Resampler(
+        2_400_000, device=cuda)
+    for r in (cpu, card):
+        r._next_out = 2 ** 32 + 12_345
+        r._consumed = r._next_out * r.down // r.up
+    chunks = ([(0, 50_000), (50_000, 50_000), (50_000, 50_005)]
+              + [(a, a + 1) for a in range(50_005, 50_025)]
+              + [(50_025, 50_137), (50_137, 200_000), (200_000, 300_000)])
+    empty = 0
+    for a, b in chunks:
+        before = R.resample_launches
+        got, want = card(x[a:b]), cpu(x[a:b])
+        assert R.resample_launches == before + (got.size > 0)
+        empty += got.size == 0
+        np.testing.assert_allclose(got, want, atol=1e-5)
+        assert (card._next_out, card._consumed) == (cpu._next_out,
+                                                    cpu._consumed)
+        np.testing.assert_array_equal(card._tail, cpu._tail)
+    assert empty >= 2
+
+
+@pytest.mark.gpu
 def test_tii_powers_on_card_match_cpu(cuda):
     from dabtools_tpu_torch.ops.tii import detect_tii_block, tii_powers_at
     from dabtools_tpu_torch.testsignal import flagship_ensemble, modulate

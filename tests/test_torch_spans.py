@@ -181,10 +181,30 @@ def test_resampler_copy_spans():
     assert [s[0] for s in done] == ["frontend", "frontend.h2d",
                                     "frontend.enqueue", "frontend.wait",
                                     "frontend.d2h"]
-    # the input behind the (taps - 1)-sample tail, then the phase and
-    # window-start index of each output sample, int64
-    assert done[1][4] == (rs.taps_per_phase - 1 + n) * 8 + 2 * y.size * 8
+    # one upload, the new samples alone: the tail stays on the device and
+    # the window indices are formed there
+    assert done[1][4] == n * 8
     assert done[-1][4] == y.nbytes > 0
+
+
+def test_resampler_uploads_its_tail_only_when_the_device_lacks_it():
+    """After a call shorter than the tail, or one that completes no output,
+    the device's tail is stale: the next call uploads the host's with the
+    samples, in the same span.  An empty call changes no tail."""
+    rs = Resampler(2_400_000, device="cpu")
+    keep = rs.taps_per_phase - 1
+    x = _unit_noise(10_000, 5)
+    chunks = [(0, 4000), (4000, 4000), (4000, 4005), (4005, 6000)]
+    chunks += [(a, a + 1) for a in range(6000, 6020)]
+    up = []
+    for a, b in chunks:
+        stale = rs._tail_dev is None
+        y, done = _front_spans(rs, x[a:b])
+        h2d = [s[4] for s in done if s[0] == "frontend.h2d"]
+        up.append(h2d)
+        assert h2d == ([(b - a + keep * stale) * 8] if y.size else [])
+    assert up[:4] == [[4000 * 8], [], [5 * 8], [(1995 + keep) * 8]]
+    assert [] in up[4:]                    # a sample that completes nothing
 
 
 def test_off_records_nothing_and_shares_one_object():
