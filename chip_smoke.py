@@ -165,6 +165,17 @@ of which raises on failure:
    ``memory_allocated`` after the last block at most 1 MiB above its
    value after the 10th device step; its real-time multiple (host clock,
    feed included) and ``max_memory_allocated``.
+16. dabplus17: an all-DAB+ test multiplex (17 EEP sub-channels of
+   16-128 kbit/s in 9 puncturing profiles, options A and B, 864/864 CUs;
+   ``testsignal.dabplus17_ensemble``) modulated for 48 frames, impaired
+   to u8 as in phase 4, through ``DabReceiver(n_frames=8)`` as
+   ``dab2eti`` runs it: acquisition of the 17 sub-channels, every ETI
+   frame's 17 payloads the modulator's, K1/K2 once per device step.
+   Then one warm 8-frame ``process_block`` with the acquired state: the
+   ragged counters of ``ops.viterbi`` (lanes, live and padded trellis
+   steps) must read 576 / 888,192 / 1,772,928, as the bit rates give
+   them, and K1/K2 must equal ``acs4_plain`` / ``traceback4_plain`` on
+   that block's 576 lanes of 9 lengths.
 
 Every path starts with all five launch counters at 0 and reads them
 when it ends.  Each phase prints its seconds.  The line before the last
@@ -178,6 +189,7 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import pathlib
@@ -194,7 +206,15 @@ import torch.distributed as dist
 
 from dabtools_tpu_torch import testsignal as S
 from dabtools_tpu_torch.cli import dab2eti, dabscan
-from dabtools_tpu_torch.constants import MODE_I, RS_K, RS_N, RS_T
+from dabtools_tpu_torch.constants import (
+    FIBS_PER_CODEWORD,
+    FIC_INFO_BITS,
+    MODE_I,
+    RS_K,
+    RS_N,
+    RS_T,
+    TAIL_BITS,
+)
 from dabtools_tpu_torch.eti.assemble import EtiAssembler
 from dabtools_tpu_torch.eti.parse import EtiParser
 from dabtools_tpu_torch.mod.convcode import conv_encode
@@ -300,6 +320,8 @@ IMP_STREAMS = 8
 SOAK_FRAMES = 625               # 60 s of stream
 SOAK_STEP = 1_000_003           # ragged, prime-sized chunks
 SOAK_MEM_SLACK = 2 ** 20        # memory_allocated growth allowed, bytes
+DP17_FRAMES = 48                # phase 16: the all-DAB+ multiplex's frames
+DP17_BLOCK = 8                  # ... in dab2eti's default blocks
 FRAME_SIZE = MODE_I.frame_size
 
 # Bounds: NVIDIA H100 SXM data-sheet peaks.
@@ -1177,6 +1199,60 @@ def mixed_phase(rng) -> None:
           f"steps")
 
 
+def _ragged_counts() -> tuple[int, int, int]:
+    return (V.ragged_lane_count, V.ragged_live_steps, V.ragged_padded_steps)
+
+
+def dabplus17_phase(rng) -> None:
+    """The all-DAB+ multiplex end to end from u8 on the card in 8-frame
+    blocks; then one warm block's ragged counters, and K1/K2 against
+    their plain versions on its lanes."""
+    ens = S.dabplus17_ensemble()
+    x, payload = S.modulate(ens, DP17_FRAMES, rng)
+    u8 = S.impaired_u8(x, rng, SNR_DB, CFO_HZ, TIMING_OFFSET)
+    rx, eti = _card_rx(u8, n_frames=DP17_BLOCK)
+    if rx.ensemble.subchannels != ens.subchannels:
+        raise AssertionError("dabplus17: acquired sub-channels differ")
+    n = S.check_eti_payloads(eti, payload, rx._activation_cif)
+    if n < 64:
+        raise AssertionError(f"dabplus17: only {n} ETI frames")
+    print(f"dabplus17: {DP17_FRAMES} frames u8 (AWGN {SNR_DB} dB, CFO "
+          f"{CFO_HZ} Hz); {rx.device_steps} device steps; {n} ETI frames, "
+          f"all 17 payloads byte-identical to the modulator's")
+
+    # one block as the receiver runs it, its Viterbi jobs recorded
+    fic = MODE_I.n_fibs // FIBS_PER_CODEWORD * DP17_BLOCK
+    cifs = MODE_I.n_cifs * DP17_BLOCK
+    steps = ([FIC_INFO_BITS + TAIL_BITS] * fic
+             + [s.bitrate_kbps * 24 + TAIL_BITS
+                for s in ens.subchannels for _ in range(cifs)])
+    lanes = len(steps)
+    want = (lanes, sum(steps), lanes * max(steps))
+    dispatches = []
+    block = rx._upload(u8[: 2 * block_samples(DP17_BLOCK)])
+    before = _ragged_counts()
+    with _recording_dispatches(dispatches):
+        to_host(process_block(
+            block, rx._rings, rx._cif_count,
+            ensemble=rx._decode.decode_config(), n_frames=DP17_BLOCK)[0])
+    (jobs,) = dispatches
+    got = tuple(a - b for a, b in zip(_ragged_counts(), before))
+    print(f"dabplus17 block: ragged_lane_count {got[0]}, ragged_live_steps "
+          f"{got[1]}, ragged_padded_steps {got[2]} ({want} from the bit "
+          f"rates; {100 * (1 - got[1] / got[2]):.1f}% padding)")
+    if got != want:
+        raise AssertionError(f"dabplus17: ragged counters {got}, not {want}")
+    soft, lengths = V.ragged_lanes(jobs)
+    b, n4 = soft.shape
+    print(f"dabplus17 lanes: {b} in {len(jobs)} jobs, trellis lengths "
+          f"{sorted(set(lengths.tolist()))}")
+    if b != lanes or len(set(lengths.tolist())) != 9:
+        raise AssertionError("dabplus17: not 576 lanes of 9 lengths")
+    hold_k1k2(soft.reshape(b, n4 // 8, 8),
+              torch.from_numpy((lengths // 2).astype(np.int32)).cuda(),
+              V._ws4(soft.device), f"dabplus17 block, {b} lanes")
+
+
 def timeblock_phase(rng, card: str) -> dict:
     """The mixed mux as a 2 x 4 time-block span on one card; returns the
     span's inputs, its output on the host and its ms per span."""
@@ -1594,12 +1670,10 @@ def ber_phase(card: str) -> None:
             raise AssertionError(f"BER waterfall: {r}")
 
 
-def _card_rx(x: np.ndarray, n_frames: int = 4, dispatches=None):
-    """``x`` through ``DabReceiver(n_frames, device="cuda")``; returns
-    (rx, its ETI) after checking K1/K2 launched once per device step.
-    With a list ``dispatches``, each Viterbi dispatch's soft jobs are
-    appended to it."""
-    rx = DabReceiver(n_frames=n_frames, device="cuda")
+@contextlib.contextmanager
+def _recording_dispatches(dispatches):
+    """Inside the block, each Viterbi dispatch's soft jobs (cloned) are
+    appended to the list ``dispatches``; with None nothing is recorded."""
     real = R.viterbi_decode_ragged
 
     def recording(jobs):
@@ -1608,11 +1682,21 @@ def _card_rx(x: np.ndarray, n_frames: int = 4, dispatches=None):
 
     if dispatches is not None:
         R.viterbi_decode_ragged = recording
-    _reset_counts()
     try:
-        eti = rx.feed(x)
+        yield
     finally:
         R.viterbi_decode_ragged = real
+
+
+def _card_rx(x: np.ndarray, n_frames: int = 4, dispatches=None):
+    """``x`` through ``DabReceiver(n_frames, device="cuda")``; returns
+    (rx, its ETI) after checking K1/K2 launched once per device step.
+    With a list ``dispatches``, each Viterbi dispatch's soft jobs are
+    appended to it."""
+    rx = DabReceiver(n_frames=n_frames, device="cuda")
+    _reset_counts()
+    with _recording_dispatches(dispatches):
+        eti = rx.feed(x)
     _launched_per_step("receiver", _counts(), rx.device_steps)
     if rx.ensemble is None:
         raise AssertionError("no ensemble acquired")
@@ -1919,6 +2003,7 @@ def main(argv: list[str]) -> int:
     phase("lab chain", lab_chain_phase, card)
     phase("BER waterfall", ber_phase, card)
     phase("impairments", impairments_phase, card)
+    phase("dabplus17", dabplus17_phase, rng)
     print(f"all phases: {time.perf_counter() - t_start:.1f} s (build "
           f"included)")
     # Each kernel's launches come from the path that drives it: K1/K2 from

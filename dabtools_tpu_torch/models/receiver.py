@@ -174,14 +174,20 @@ def pre_viterbi(x, frame_start_guesses, rings, cif_count, *,
     # decoded yet, but their CU slice and 16-CIF time deinterleave need
     # only the Table 31 size: the aligned soft rows feed ops.uep_probe's
     # row identification on the host.
+    # Spans (host time only): ``demod.deinterleave`` per sub-channel's
+    # time deinterleave, ``demod.depuncture`` per Viterbi job (the FIC,
+    # then each profile group with its ``cat``).
     for s in probe_subs:
         key = str(s.subchid)
         lo = s.start_cu * C.CU_BITS
         sub_soft = msc[..., lo: lo + s.size_cus * C.CU_BITS]
-        ring, aligned = time_deinterleave(rings[key], cif_count, sub_soft)
+        with spans.span("demod.deinterleave"):
+            ring, aligned = time_deinterleave(rings[key], cif_count,
+                                              sub_soft)
         new_rings[key] = ring
         out["probe_soft"][key] = aligned
-    jobs = [depuncture(fic_soft, FIC_PROFILE)]
+    with spans.span("demod.depuncture"):
+        jobs = [depuncture(fic_soft, FIC_PROFILE)]
     groups: dict = {}
     if ensemble is not None:
         for s in ensemble.subchannels:
@@ -192,13 +198,16 @@ def pre_viterbi(x, frame_start_guesses, rings, cif_count, *,
                 key = str(s.subchid)
                 lo = s.start_cu * C.CU_BITS
                 sub_soft = msc[..., lo: lo + profile.tx_bits]
-                ring, aligned = time_deinterleave(
-                    rings[key], cif_count, sub_soft)
+                with spans.span("demod.deinterleave"):
+                    ring, aligned = time_deinterleave(
+                        rings[key], cif_count, sub_soft)
                 new_rings[key] = ring
                 aligned_all.append(aligned)
             # (..., subs * n_cifs, tx_bits), stream-major in the lanes
-            jobs.append(depuncture(torch.cat(aligned_all, dim=-2).reshape(
-                -1, profile.tx_bits), profile))
+            with spans.span("demod.depuncture"):
+                jobs.append(depuncture(torch.cat(
+                    aligned_all, dim=-2).reshape(-1, profile.tx_bits),
+                    profile))
     return out, new_rings, jobs, groups
 
 

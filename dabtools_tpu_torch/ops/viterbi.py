@@ -39,6 +39,15 @@ NEG_INF = -1e30
 
 TRACEBACKS = ("factored", "onehot64")
 
+# What the ragged dispatches decoded, counted from shapes alone (never a
+# device value), beside ``viterbi_cuda``'s launch counters: lanes, live
+# trellis steps (each lane's own T) and steps as decoded, every lane
+# padded to the dispatch's longest T (the live steps again where a batch
+# by batch fallback pads nothing).
+ragged_lane_count = 0
+ragged_live_steps = 0
+ragged_padded_steps = 0
+
 # Double steps the plain radix-4 ACS handles per chunk (bounds its
 # branch-metric and decision scratch at (8, 256, B) float32 and (B, 8, 64)
 # int64); the radix-2 one takes twice as many single steps.
@@ -446,15 +455,24 @@ def viterbi_decode_ragged(softs):
     every MSC profile group share one ACS chain.  A mix that holds an odd
     T decodes batch by batch instead, as the JAX package's does.  Returns
     a list of ``(bits_i, metric_i)`` in the same order, each equal to
-    ``viterbi_decode(softs[i])``.
+    ``viterbi_decode(softs[i])``.  Adds the dispatch's lanes, live steps
+    and padded steps to ``ragged_lane_count``, ``ragged_live_steps`` and
+    ``ragged_padded_steps``.
     """
+    global ragged_lane_count, ragged_live_steps, ragged_padded_steps
     softs = list(softs)
     if not softs:
         return []
     if any(s.ndim != 2 for s in softs):
         raise ValueError("each batch must be (batch_i, 4*T_i) soft bits")
+    lanes = sum(s.shape[0] for s in softs)
+    live = sum(s.shape[0] * (s.shape[-1] // 4) for s in softs)
+    ragged_lane_count += lanes
+    ragged_live_steps += live
     if any((s.shape[-1] // 4) % 2 for s in softs):
+        ragged_padded_steps += live
         return [viterbi_decode(s) for s in softs]
+    ragged_padded_steps += lanes * max(s.shape[-1] // 4 for s in softs)
     soft, lengths = ragged_lanes(softs)
     bits, metric = viterbi_decode4(soft, lengths)
     out, o = [], 0

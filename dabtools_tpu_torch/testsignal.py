@@ -1,6 +1,7 @@
 """Known-answer signals for exercising the port: the flagship mux as
 impaired u8 IQ (optionally with TII), at another sample rate, or several
-such muxes in one wideband Band III capture; the closed-loop ensemble of
+such muxes in one wideband Band III capture; an all-DAB+ multiplex of 17
+sub-channels in 9 EEP profiles; the closed-loop ensemble of
 the BER sweep; a hard channel batch (streams whose integer CFOs and
 sample-clock drifts differ); the robustness set's sync-loss stream and
 impaired-span chain; the mixed mux (EEP, UEP and a DAB+
@@ -63,6 +64,32 @@ def flagship_ensemble(eid: int = 0x4FFF,
             ServiceComponent(tmid=0, subchid=i),))
         for i in range(9))
     return Ensemble(eid=eid, subchannels=subs, services=svcs, label=label)
+
+
+# An all-DAB+ test multiplex, a line-up made up to span the EEP profiles
+# rather than one taken from a broadcast: (kbit/s, EEP level, option) per
+# sub-channel, contiguous in id order over 864 CUs
+DABPLUS17 = ((128, 3, "A"), (96, 3, "A"), (96, 3, "A"), (80, 3, "A"),
+             (80, 3, "A"), (80, 3, "A"), (64, 3, "A"), (64, 3, "A"),
+             (64, 3, "A"), (64, 3, "A"), (48, 3, "A"), (48, 3, "A"),
+             (72, 2, "A"), (56, 2, "A"), (32, 3, "B"), (32, 3, "B"),
+             (16, 2, "A"))
+
+
+def dabplus17_ensemble() -> Ensemble:
+    """A full Mode I multiplex of 17 EEP sub-channels in 9 puncturing
+    profiles (``DABPLUS17``), one service each."""
+    subs, svcs, start = [], [], 0
+    for i, (kbps, level, option) in enumerate(DABPLUS17):
+        subs.append(Subchannel.eep(i, start_cu=start, level=level,
+                                   option=option, bitrate_kbps=kbps))
+        start += subs[-1].size_cus
+        kind = "DATA" if kbps <= 32 else "DAB+"     # labels of <= 16 chars
+        svcs.append(Service(
+            sid=0xC2A0 + i, label=f"{kind} {i:02d} {kbps}K {level}{option}",
+            components=(ServiceComponent(tmid=0, subchid=i),)))
+    return Ensemble(eid=0x1ABC, subchannels=tuple(subs),
+                    services=tuple(svcs), label="DABPLUS17")
 
 
 def closed_loop_ensemble() -> Ensemble:

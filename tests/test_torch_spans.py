@@ -248,6 +248,7 @@ def test_cli_stats_logs_each_chunks_spans(tmp_path):
     assert names == {"rx.feed", "rx.ring", "rx.block", "rx.block.acquire",
                      "rx.h2d",
                      "rx.enqueue", "enqueue.sync", "enqueue.demod",
+                     "demod.deinterleave", "demod.depuncture",
                      "enqueue.viterbi", "enqueue.pack", "rx.wait",
                      "rx.d2h", "rx.fic", "rx.eti"}
     assert all("MB" in ln for ln in logged)
