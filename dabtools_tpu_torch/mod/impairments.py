@@ -189,5 +189,13 @@ def quantize_u8(x: np.ndarray, scale: float = 64.0) -> np.ndarray:
 
 
 def u8_to_complex(u8: np.ndarray, scale: float = 64.0) -> np.ndarray:
-    f = (u8.astype(np.float32) - 128.0) / scale
-    return (f[0::2] + 1j * f[1::2]).astype(np.complex64)
+    # One float32 buffer of (u8 - 128) / scale, its interleaved I/Q pairs read
+    # as complex64: the bits of converting I and Q apart, without complex128
+    # temporaries.  ``f /= scale`` promotes ``scale`` as ``f / scale`` does
+    # (in NumPy 2 a NumPy float64 divides in float64, rounded once to float32).
+    if u8.size % 2:
+        raise ValueError(
+            f"{u8.size} bytes: interleaved I/Q needs an even count")
+    f = np.subtract(u8, np.float32(128.0), dtype=np.float32)
+    f /= scale
+    return f.view(np.complex64)

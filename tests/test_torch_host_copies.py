@@ -3,9 +3,12 @@
 ``dabtools_tpu_torch`` imports nothing of ``dabtools_tpu``: the NumPy host
 modules it needs are copied into it at the same relative path, verbatim
 but for their import lines (``dabtools_tpu.`` becomes
-``dabtools_tpu_torch.``).  One listed exception: ``utils/native.py``'s
+``dabtools_tpu_torch.``).  Listed exceptions: ``utils/native.py``'s
 docstring names the directory its library builds in, which is the port's
-own ``native/`` (the code finds it relative to the module, unchanged).
+own ``native/`` (the code finds it relative to the module, unchanged);
+``mod/impairments.py``'s ``u8_to_complex`` has its own body, one float32
+pass with no complex128 temporaries, held bit for bit against the
+original's below.
 
 Each copy is held against its original as text, and the copies' behaviour
 against the originals' on one seed.
@@ -23,6 +26,7 @@ from dabtools_tpu.eti.assemble import EtiAssembler as JEtiAssembler
 from dabtools_tpu.fic import config as jconfig
 from dabtools_tpu.fic.fig import FigParser as JFigParser
 from dabtools_tpu.fic.fig import build_fibs_for_ensemble as jbuild_fibs
+from dabtools_tpu.mod.impairments import u8_to_complex as ju8_to_complex
 from dabtools_tpu.mod.modulator import Modulator as JModulator
 from dabtools_tpu.mod.modulator import SubchannelSource as JSource
 from dabtools_tpu.utils.crc import crc16_ok_batch as jcrc16_ok_batch
@@ -30,6 +34,7 @@ from dabtools_tpu_torch import constants as tC
 from dabtools_tpu_torch.eti.assemble import EtiAssembler
 from dabtools_tpu_torch.fic import config as tconfig
 from dabtools_tpu_torch.fic.fig import FigParser, build_fibs_for_ensemble
+from dabtools_tpu_torch.mod.impairments import u8_to_complex
 from dabtools_tpu_torch.mod.modulator import Modulator, SubchannelSource
 from dabtools_tpu_torch.utils.crc import crc16_ok_batch
 
@@ -67,6 +72,23 @@ EXCEPTIONS = {
     # where the native library builds
     "utils/native.py": [("make -C dabtools_tpu/native",
                          "make -C dabtools_tpu_torch/native")],
+    # u8_to_complex's body: the dab2eti loop's conversion in one float32 pass
+    # (test_u8_to_complex_is_the_originals_bits holds its behaviour)
+    "mod/impairments.py": [("""\
+    f = (u8.astype(np.float32) - 128.0) / scale
+    return (f[0::2] + 1j * f[1::2]).astype(np.complex64)
+""", """\
+    # One float32 buffer of (u8 - 128) / scale, its interleaved I/Q pairs read
+    # as complex64: the bits of converting I and Q apart, without complex128
+    # temporaries.  ``f /= scale`` promotes ``scale`` as ``f / scale`` does
+    # (in NumPy 2 a NumPy float64 divides in float64, rounded once to float32).
+    if u8.size % 2:
+        raise ValueError(
+            f"{u8.size} bytes: interleaved I/Q needs an even count")
+    f = np.subtract(u8, np.float32(128.0), dtype=np.float32)
+    f /= scale
+    return f.view(np.complex64)
+""")],
     "cli/etiremux.py": [(_JAX_PIN.format(why="host byte work only"), "")],
     "cli/eti2iq.py": [(_JAX_PIN.format(why="host byte/NumPy work"), "")],
     "cli/eti2audio.py": [("""\
@@ -178,6 +200,54 @@ def test_dabplus_rs_decode_columns_is_the_numpy_codec():
     np.testing.assert_array_equal(data, ref_data)
     np.testing.assert_array_equal(counts, ref_counts)
     assert (counts[[3, 4, 8]] == -1).all()
+
+
+def _every_byte_pair() -> np.ndarray:
+    """All 65,536 (I, Q) byte pairs, interleaved."""
+    i, q = np.divmod(np.arange(65536), 256)
+    return np.stack([i, q], axis=-1).reshape(-1).astype(np.uint8)
+
+
+def _strided() -> np.ndarray:
+    """A non-contiguous view: every other byte of random u8."""
+    u8 = np.random.default_rng(19).integers(0, 256, 4100, dtype=np.uint8)
+    return u8[::2]
+
+
+U8_CASES = {
+    # every byte value in either position, at each scale; np.float64(100.3)
+    # is not a float32, so it also pins the promotion of a NumPy scale
+    **{f"pairs-{s!r}": (_every_byte_pair, s)
+       for s in (64.0, 127.5, 100.0, np.float64(127.5), np.float64(100.3))},
+    "empty": (lambda: np.zeros(0, np.uint8), 64.0),
+    "one-sample": (lambda: np.array([0, 255], np.uint8), 64.0),
+    # one 8-frame block of the 8.192 Msps wideband capture
+    "wideband-block": (lambda: np.random.default_rng(8).integers(
+        0, 256, 12_582_912, dtype=np.uint8), 64.0),
+    "strided": (_strided, 64.0),
+}
+
+
+@pytest.mark.parametrize("case", U8_CASES)
+def test_u8_to_complex_is_the_originals_bits(case):
+    """The port's ``u8_to_complex`` gives the JAX package's bits, shape and
+    dtype, in a fresh, writeable, C-contiguous array of its own."""
+    make, scale = U8_CASES[case]
+    u8 = make()
+    got, ref = u8_to_complex(u8, scale), ju8_to_complex(u8, scale)
+    assert got.dtype == ref.dtype == np.complex64
+    assert got.shape == ref.shape == (u8.size // 2,)
+    np.testing.assert_array_equal(got.view(np.uint32), ref.view(np.uint32))
+    assert got.flags.c_contiguous and got.flags.writeable
+    assert not np.shares_memory(got, u8)
+
+
+@pytest.mark.parametrize("n", [1, 3, 5])
+def test_u8_to_complex_refuses_odd_lengths(n):
+    """An odd byte count is no I/Q stream (the original broadcasts lengths
+    1 and 3 into a wrongly shaped result)."""
+    with pytest.raises(ValueError):
+        u8_to_complex(np.full(n, 128, np.uint8))
 
 
 def _ensembles():
