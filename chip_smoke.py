@@ -171,14 +171,14 @@ of which raises on failure:
    to u8 as in phase 4, through ``DabReceiver(n_frames=8)`` as
    ``dab2eti`` runs it: acquisition of the 17 sub-channels, every ETI
    frame's 17 payloads the modulator's, K1/K2 once per device step.
-   Then one warm 8-frame ``process_block`` with the acquired state: the
-   ragged counters of ``ops.viterbi`` (lanes, live and padded trellis
-   steps) must read 576 / 888,192 / 1,772,928, as the bit rates give
-   them, and K1/K2 must equal ``acs4_plain`` / ``traceback4_plain`` on
-   that block's 576 lanes of 9 lengths.
+   Then one warm 8-frame ``process_block`` with the acquired state: its
+   Viterbi jobs as ``ops.viterbi.ragged_lanes`` lays them out (lanes, live
+   and padded trellis steps) must read 576 / 888,192 / 1,772,928, as the
+   bit rates give them, and K1/K2 must equal ``acs4_plain`` /
+   ``traceback4_plain`` on that block's 576 lanes of 9 lengths.
 
-Every path starts with all five launch counters at 0 and reads them
-when it ends.  Each phase prints its seconds.  The line before the last
+Every path starts with all five kernels' counts in ``cudalib.launches``
+at 0 and reads them when it ends.  Each phase prints its seconds.  The line before the last
 is the kernels' JSON record, with each kernel's bound: the larger of
 the bytes it must move over the
 card's memory rate and the operations it must do over its float32 rate
@@ -237,6 +237,7 @@ from dabtools_tpu_torch.models.receiver import (
     process_block,
     to_host,
 )
+from dabtools_tpu_torch.ops import cudalib
 from dabtools_tpu_torch.ops import resample as RES
 from dabtools_tpu_torch.ops import viterbi as V
 from dabtools_tpu_torch.ops import viterbi_cuda as K
@@ -363,21 +364,21 @@ def device_phase() -> str:
 
 def build_phase() -> None:
     t0 = time.perf_counter()
-    K.build()
+    cudalib.build()
     dt = time.perf_counter() - t0
-    print(f"build: {K.library_path().name} in {dt:.2f} s")
-    for line in K.build_log.splitlines():
+    print(f"build: {cudalib.library_path().name} in {dt:.2f} s")
+    for line in cudalib.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
 
 
 def _reset_counts() -> None:
     for name in KERNELS:
-        setattr(K, f"{name}_launches", 0)
+        cudalib.launches[f"dab_{name}"] = 0
 
 
 def _counts() -> dict:
-    return {name: getattr(K, f"{name}_launches") for name in KERNELS}
+    return {name: cudalib.launches[f"dab_{name}"] for name in KERNELS}
 
 
 def _launched_per_step(what: str, launches: dict, steps: int) -> None:
@@ -807,11 +808,11 @@ def resampler_phase(rng, card: str) -> None:
     rs = Resampler(2_400_000, device="cuda")
     rs(x24[:100_000])                                # warm-up, own stream
     rs = Resampler(2_400_000, device="cuda")
-    launches = RES.resample_launches
+    launches = cudalib.launches["dab_resample"]
     t0 = time.perf_counter()
     y = rs(x24)
     dt = time.perf_counter() - t0
-    launches = RES.resample_launches - launches
+    launches = cudalib.launches["dab_resample"] - launches
     if launches != 1:
         raise AssertionError(f"resampler: {launches} kernel launches in "
                              f"one call")
@@ -1199,13 +1200,9 @@ def mixed_phase(rng) -> None:
           f"steps")
 
 
-def _ragged_counts() -> tuple[int, int, int]:
-    return (V.ragged_lane_count, V.ragged_live_steps, V.ragged_padded_steps)
-
-
 def dabplus17_phase(rng) -> None:
     """The all-DAB+ multiplex end to end from u8 on the card in 8-frame
-    blocks; then one warm block's ragged counters, and K1/K2 against
+    blocks; then one warm block's ragged lanes, and K1/K2 against
     their plain versions on its lanes."""
     ens = S.dabplus17_ensemble()
     x, payload = S.modulate(ens, DP17_FRAMES, rng)
@@ -1230,19 +1227,18 @@ def dabplus17_phase(rng) -> None:
     want = (lanes, sum(steps), lanes * max(steps))
     dispatches = []
     block = rx._upload(u8[: 2 * block_samples(DP17_BLOCK)])
-    before = _ragged_counts()
     with _recording_dispatches(dispatches):
         to_host(process_block(
             block, rx._rings, rx._cif_count,
             ensemble=rx._decode.decode_config(), n_frames=DP17_BLOCK)[0])
     (jobs,) = dispatches
-    got = tuple(a - b for a, b in zip(_ragged_counts(), before))
-    print(f"dabplus17 block: ragged_lane_count {got[0]}, ragged_live_steps "
-          f"{got[1]}, ragged_padded_steps {got[2]} ({want} from the bit "
-          f"rates; {100 * (1 - got[1] / got[2]):.1f}% padding)")
-    if got != want:
-        raise AssertionError(f"dabplus17: ragged counters {got}, not {want}")
     soft, lengths = V.ragged_lanes(jobs)
+    got = (len(lengths), int(lengths.sum()), len(lengths) * int(lengths.max()))
+    print(f"dabplus17 block: ragged lanes {got[0]}, live steps {got[1]}, "
+          f"padded steps {got[2]} ({want} from the bit rates; "
+          f"{100 * (1 - got[1] / got[2]):.1f}% padding)")
+    if got != want:
+        raise AssertionError(f"dabplus17: ragged lanes {got}, not {want}")
     b, n4 = soft.shape
     print(f"dabplus17 lanes: {b} in {len(jobs)} jobs, trellis lengths "
           f"{sorted(set(lengths.tolist()))}")
@@ -1442,7 +1438,7 @@ def multiprocess_phase(tb: dict, card: str) -> None:
     # The workers load the kernels and libdabhost.so that this process
     # built: nothing may build them again (utils/native.py builds with
     # make in any process that finds no library).
-    K.build()
+    cudalib.build()
     if native.lib() is None:
         raise AssertionError("libdabhost.so is not built")
     with tempfile.TemporaryDirectory() as tmp:
@@ -1523,7 +1519,7 @@ def span_worker(rank: int, port: str, tmp: pathlib.Path) -> None:
     # NCCL does not put two ranks on one GPU, so on a one-card machine
     # the halos travel through host memory under gloo.
     init_multihost(f"127.0.0.1:{port}", SPAN_RANKS, rank, backend="gloo")
-    K.build()
+    cudalib.build()
     data = np.load(tmp / "span.npz")
     mix = S.mixed_ensemble()
     n_ch, n_time = data["span"].shape[0], 4

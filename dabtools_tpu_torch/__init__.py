@@ -13,7 +13,7 @@ Rules of the package:
   ``fic``, ``eti``, ``utils``, ``mod`` and ``native/dabhost.cc``) are
   copies of the JAX package's, identical but for their import lines.
 * Every device function takes tensors on one explicit device.  A CUDA
-  tensor reaches the hand-written kernels (``ops/viterbi_cuda.py``) or the
+  tensor reaches the hand-written kernels (``ops/cudalib.py``) or the
   call raises; a CPU tensor takes the plain PyTorch version of each kernel.
   Nothing moves work to the CPU on its own.
 

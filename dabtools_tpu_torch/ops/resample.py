@@ -31,11 +31,10 @@ import numpy as np
 import torch
 
 from dabtools_tpu_torch.constants import SAMPLE_RATE
-from dabtools_tpu_torch.ops import viterbi_cuda
+from dabtools_tpu_torch.ops import cudalib
 from dabtools_tpu_torch.ops.fir import design_lowpass
 from dabtools_tpu_torch.utils import spans
 
-resample_launches = 0
 OUTS_PER_BLOCK = 1024               # csrc/resample.cu's outputs a block
 SMEM_MAX = 227 * 1024               # shared memory a block may opt into
 INT32_MAX = 2 ** 31 - 1
@@ -82,15 +81,15 @@ def resample_cuda(tail: torch.Tensor, x: torch.Tensor, bank: torch.Tensor,
 
     ``tail``: (taps - 1,) complex64, the inputs before ``x``; ``x``: (n,)
     complex64; ``bank``: (up, taps) float32; ``r0``, ``s0`` as in
-    :func:`window_indices`.  Returns (n_out,) complex64.
+    :func:`window_indices`.  Returns (n_out,) complex64.  Counted in
+    ``cudalib.launches["dab_resample"]``.
     """
-    global resample_launches
     dev = x.device
     up, taps = bank.shape
     n_x = x.shape[0]
-    viterbi_cuda._check(tail, "tail", torch.complex64, (taps - 1,), dev, 8)
-    viterbi_cuda._check(x, "x", torch.complex64, (n_x,), dev, 8)
-    viterbi_cuda._check(bank, "bank", torch.float32, (up, taps), dev)
+    cudalib.check(tail, "tail", torch.complex64, (taps - 1,), dev, 8)
+    cudalib.check(x, "x", torch.complex64, (n_x,), dev, 8)
+    cudalib.check(bank, "bank", torch.float32, (up, taps), dev)
     last = s0 + (r0 + (n_out - 1) * down) // up if n_out else 0
     if not (0 <= r0 < up and s0 >= 0 and last < n_x
             and max(n_out, taps - 1 + n_x) <= INT32_MAX):
@@ -100,11 +99,10 @@ def resample_cuda(tail: torch.Tensor, x: torch.Tensor, bank: torch.Tensor,
     if n_out == 0:
         return y
     smem = _smem_bytes(up, down, taps)
-    lib = viterbi_cuda.build()
-    viterbi_cuda._launch(lib.dab_resample, tail.data_ptr(), x.data_ptr(),
-                         bank.data_ptr(), y.data_ptr(), r0, s0, n_out, down,
-                         up, taps, OUTS_PER_BLOCK, smem, device=dev)
-    resample_launches += 1
+    lib = cudalib.build()
+    cudalib.launch(lib.dab_resample, tail.data_ptr(), x.data_ptr(),
+                   bank.data_ptr(), y.data_ptr(), r0, s0, n_out, down, up,
+                   taps, OUTS_PER_BLOCK, smem, device=dev)
     return y
 
 

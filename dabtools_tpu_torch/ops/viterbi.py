@@ -39,15 +39,6 @@ NEG_INF = -1e30
 
 TRACEBACKS = ("factored", "onehot64")
 
-# What the ragged dispatches decoded, counted from shapes alone (never a
-# device value), beside ``viterbi_cuda``'s launch counters: lanes, live
-# trellis steps (each lane's own T) and steps as decoded, every lane
-# padded to the dispatch's longest T (the live steps again where a batch
-# by batch fallback pads nothing).
-ragged_lane_count = 0
-ragged_live_steps = 0
-ragged_padded_steps = 0
-
 # Double steps the plain radix-4 ACS handles per chunk (bounds its
 # branch-metric and decision scratch at (8, 256, B) float32 and (B, 8, 64)
 # int64); the radix-2 one takes twice as many single steps.
@@ -55,27 +46,12 @@ _STEP_CHUNK = 8
 
 
 @functools.cache
-def transition_matrix() -> np.ndarray:
-    """W: (128, 4) float32; row ``4*c + 2*b + u`` is the +/-1 pattern of the
-    coded bits on the transition (state=2c+b) --input u--> (u*32 + c)."""
-    table = output_table()  # out[reg] -> 4 bits, reg = (u << 6) | state
-    w = np.empty((128, 4), dtype=np.float32)
-    for c in range(32):
-        for b in range(2):
-            for u in range(2):
-                reg = (u << 6) | (2 * c + b)
-                w[4 * c + 2 * b + u] = 1.0 - 2.0 * table[reg]
-    return w
-
-
-@functools.cache
-def acs_radix4_matrices():
-    """Radix-4 ACS operators.  ``PU4`` (256, 64) row ``p*64+t`` picks
-    predecessor p of target t; ``WS4`` (256, 8) holds the +/-1 pattern of
-    the 8 coded bits along that 2-step path (first step's 4 bits, then the
+def ws4_table() -> np.ndarray:
+    """K1's branch-metric signs, (256, 8) float32: row ``p*64 + t`` holds
+    the +/-1 pattern of the 8 coded bits on the 2-step path from
+    predecessor ``4*(t&15) + p`` to target t (first step's 4 bits, then the
     second's)."""
     table = output_table()
-    pu4 = np.zeros((256, 64), dtype=np.float32)
     ws4 = np.empty((256, 8), dtype=np.float32)
     for t in range(64):
         u2, u1 = t >> 5, (t >> 4) & 1
@@ -85,39 +61,34 @@ def acs_radix4_matrices():
             reg1 = (u1 << 6) | pred
             reg2 = (u2 << 6) | mid
             r = p * 64 + t
-            pu4[r, pred] = 1.0
             ws4[r, :4] = 1.0 - 2.0 * table[reg1]
             ws4[r, 4:] = 1.0 - 2.0 * table[reg2]
-    return pu4, ws4
+    return ws4
 
 
 @functools.cache
-def acs_matmul_matrices():
-    """Target-major radix-2 ACS operators.  ``PU`` (128, 64): rows 0..63
-    pick predecessor ``2t mod 64`` of target t, rows 64..127 pick ``2t mod
-    64 + 1``.  ``WS`` (128, 4): the +/-1 coded-bit pattern of the
-    corresponding transition, so row ``t`` (``64 + t``) of target ``t = u*32
-    + c`` is row ``4c + u`` (``4c + 2 + u``) of :func:`transition_matrix`."""
+def ws2_table() -> np.ndarray:
+    """K3's branch-metric signs, (128, 4) float32: row ``t`` (``64 + t``)
+    holds the +/-1 coded-bit pattern of the transition into target ``t =
+    u*32 + c`` from predecessor ``2t mod 64`` (``2t mod 64 + 1``)."""
     table = output_table()
-    pu = np.zeros((128, 64), dtype=np.float32)
     ws = np.empty((128, 4), dtype=np.float32)
     for r in range(128):
         t = r % 64
         pred = (2 * t) % 64 + (1 if r >= 64 else 0)
         u = t >> 5
-        pu[r, pred] = 1.0
         ws[r] = 1.0 - 2.0 * table[(u << 6) | pred]
-    return pu, ws
+    return ws
 
 
 @functools.cache
 def _ws4(device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(acs_radix4_matrices()[1]).to(device)
+    return torch.from_numpy(ws4_table()).to(device)
 
 
 @functools.cache
 def _ws2(device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(acs_matmul_matrices()[1]).to(device)
+    return torch.from_numpy(ws2_table()).to(device)
 
 
 def _signed_sums(s4: torch.Tensor) -> torch.Tensor:
@@ -274,8 +245,8 @@ def traceback4_onehot64_plain(dec: torch.Tensor) -> torch.Tensor:
 def acs2_plain(soft4: torch.Tensor, ws2: torch.Tensor):
     """Plain PyTorch version of K3 (``viterbi_cuda.acs2``).
 
-    ``soft4``: (B, T, 4) float32, ``ws2``: (128, 4) float32, the ``WS``
-    of :func:`acs_matmul_matrices`.  Target ``t = u*32 + c`` takes
+    ``soft4``: (B, T, 4) float32, ``ws2``: (128, 4) float32, the signs of
+    :func:`ws2_table`.  Target ``t = u*32 + c`` takes
     candidate ``c0 = pm[2c] + bm[t]`` or ``c1 = pm[2c+1] + bm[64+t]``,
     where ``bm[r] = ((w0 s0 + w1 s1) + w2 s2) + w3 s3`` with ``w =
     ws2[r]``, summed left to right as the kernel does; ``d = c1 > c0``
@@ -455,24 +426,15 @@ def viterbi_decode_ragged(softs):
     every MSC profile group share one ACS chain.  A mix that holds an odd
     T decodes batch by batch instead, as the JAX package's does.  Returns
     a list of ``(bits_i, metric_i)`` in the same order, each equal to
-    ``viterbi_decode(softs[i])``.  Adds the dispatch's lanes, live steps
-    and padded steps to ``ragged_lane_count``, ``ragged_live_steps`` and
-    ``ragged_padded_steps``.
+    ``viterbi_decode(softs[i])``.
     """
-    global ragged_lane_count, ragged_live_steps, ragged_padded_steps
     softs = list(softs)
     if not softs:
         return []
     if any(s.ndim != 2 for s in softs):
         raise ValueError("each batch must be (batch_i, 4*T_i) soft bits")
-    lanes = sum(s.shape[0] for s in softs)
-    live = sum(s.shape[0] * (s.shape[-1] // 4) for s in softs)
-    ragged_lane_count += lanes
-    ragged_live_steps += live
     if any((s.shape[-1] // 4) % 2 for s in softs):
-        ragged_padded_steps += live
         return [viterbi_decode(s) for s in softs]
-    ragged_padded_steps += lanes * max(s.shape[-1] // 4 for s in softs)
     soft, lengths = ragged_lanes(softs)
     bits, metric = viterbi_decode4(soft, lengths)
     out, o = [], 0

@@ -9,12 +9,12 @@ profiles, options A and B, over all 864 CUs.
   held against the benchmark's plain reference (``rxbench/reference``),
   clean and under the control fault;
 * the same u8 through the JAX receiver and the port: the same ETI;
-* the ragged Viterbi counters of one 8-frame block, for this multiplex
+* the ragged Viterbi lanes of one 8-frame block, for this multiplex
   and the flagship, against lanes and trellis steps counted from the bit
-  rates alone;
+  rates alone, and the batch-by-batch decode of an odd-length mix;
 * the demod chain's per-sub-channel and per-job spans.
 
-Blocks are 4 frames (8 where the counters are pinned) and the pool is
+Blocks are 4 frames (8 where the lanes are pinned) and the pool is
 the benchmark's own generator at a small ``pool_frames``.
 """
 
@@ -163,31 +163,43 @@ def _block(name: str, n_frames: int):
 
 
 @pytest.mark.parametrize("name", sorted(PER_BLOCK))
-def test_ragged_counters_per_block(name):
-    """The counters of one 8-frame block: FIC and MSC lanes, their live
+def test_ragged_counters_per_block(name, monkeypatch):
+    """The lanes of one 8-frame block's Viterbi jobs (``pre_viterbi``'s,
+    as ``ragged_lanes`` lays them out): FIC and MSC lanes, their live
     trellis steps (data bits + tail) and the steps padded to the longest
-    lane, from kbit/s x 24 + 6 and nothing of the code under test."""
+    lane, against kbit/s x 24 + 6 and nothing of the code under test."""
     n = 8
     steps = [FIC_DATA_BITS + TAIL] * (FIC_LANES_PER_FRAME * n)
     for s in _spec(name)["subchannels"]:
         steps += [s["kbps"] * 24 + TAIL] * (4 * n)     # 4 CIFs a frame
     want = (len(steps), sum(steps), len(steps) * max(steps))
     assert want == PER_BLOCK[name]
-    before = (V.ragged_lane_count, V.ragged_live_steps,
-              V.ragged_padded_steps)
+    dispatches = []
+
+    def recording(jobs):
+        dispatches.append(jobs)
+        return V.viterbi_decode_ragged(jobs)
+
+    monkeypatch.setattr(trx, "viterbi_decode_ragged", recording)
     _block(name, n)
-    got = (V.ragged_lane_count - before[0], V.ragged_live_steps - before[1],
-           V.ragged_padded_steps - before[2])
+    (jobs,) = dispatches
+    _, lengths = V.ragged_lanes(jobs)
+    got = (len(lengths), lengths.sum(), len(lengths) * lengths.max())
     assert got == want
 
 
 def test_ragged_counters_in_the_batch_by_batch_fallback():
-    """An odd T decodes batch by batch: nothing is padded."""
-    before = (V.ragged_lane_count, V.ragged_live_steps,
-              V.ragged_padded_steps)
-    V.viterbi_decode_ragged([torch.zeros(3, 4 * 13), torch.zeros(2, 4 * 8)])
-    assert (V.ragged_lane_count - before[0], V.ragged_live_steps - before[1],
-            V.ragged_padded_steps - before[2]) == (5, 55, 55)
+    """A mix that holds an odd T decodes batch by batch: each batch's bits
+    and metrics exactly those of ``viterbi_decode`` of it alone."""
+    rng = np.random.default_rng(13)
+    jobs = [torch.from_numpy(rng.normal(size=(3, 4 * t)).astype(np.float32))
+            for t in (13, 8)]
+    got = V.viterbi_decode_ragged(jobs)
+    assert len(got) == len(jobs)
+    for (bits, metric), job in zip(got, jobs):
+        want_bits, want_metric = V.viterbi_decode(job)
+        torch.testing.assert_close(bits, want_bits, rtol=0, atol=0)
+        torch.testing.assert_close(metric, want_metric, rtol=0, atol=0)
 
 
 def test_demod_spans_per_subchannel_and_job():

@@ -26,6 +26,7 @@ from dabtools_tpu.ops.sync import coarse_null_sync
 from dabtools_tpu.tables import bandiii as jband
 from dabtools_tpu_torch.mod import modulator as tmod
 from dabtools_tpu_torch.models import receiver as trx
+from dabtools_tpu_torch.ops import cudalib
 from dabtools_tpu_torch.ops import fir as tfir
 from dabtools_tpu_torch.ops import resample as tres
 from dabtools_tpu_torch.ops import tii as ttii
@@ -245,12 +246,12 @@ def test_resample_kernel_wrapper_refuses_cpu_tensors():
     """The kernel's wrapper never falls back: a CPU tensor raises before
     any build or launch, and the launch counter stays."""
     r = tres.Resampler(2_400_000, device="cpu")
-    before = tres.resample_launches
+    before = cudalib.launches["dab_resample"]
     with pytest.raises(ValueError, match="CUDA tensor"):
         tres.resample_cuda(r._tail_dev,
                            torch.zeros(100, dtype=torch.complex64),
                            r._bank_dev, 0, 0, 10, r.down)
-    assert tres.resample_launches == before
+    assert cudalib.launches["dab_resample"] == before
 
 
 def test_resampler_rejects_unrelated_rate():

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from dabtools_tpu_torch.mod.convcode import conv_encode
+from dabtools_tpu_torch.ops import cudalib
 from dabtools_tpu_torch.ops import viterbi as V
 from dabtools_tpu_torch.ops.viterbi_cuda import CHUNK
 
@@ -45,6 +46,11 @@ def _noisy_batch(rng, batch, n, scale=0.6):
 def _info_bits(t2):
     """Information bits of a codeword of ``t2`` double steps."""
     return 2 * t2 - 6
+
+
+def _launches(*kernels):
+    """Launches so far of each named kernel (its C symbol less ``dab_``)."""
+    return tuple(cudalib.launches[f"dab_{k}"] for k in kernels)
 
 
 @pytest.mark.gpu
@@ -106,10 +112,9 @@ def test_radix2_kernels_match_plain(cuda, shape):
     torch.testing.assert_close(metric_k, metric_p, rtol=0, atol=0)
     torch.testing.assert_close(K.traceback2(dec_k),
                                V.traceback2_plain(dec_k), rtol=0, atol=0)
-    n0 = K.acs2_launches, K.traceback2_launches
+    n0 = _launches("acs2", "traceback2")
     bits, _ = V.viterbi_decode(s)
-    assert (K.acs2_launches, K.traceback2_launches) == (n0[0] + 1,
-                                                        n0[1] + 1)
+    assert _launches("acs2", "traceback2") == (n0[0] + 1, n0[1] + 1)
     np.testing.assert_array_equal(bits.cpu().numpy(), msgs)
 
 
@@ -149,10 +154,10 @@ def test_onehot64_traceback_matches_k2(cuda, t2_max):
     m2, s2 = _noisy_batch(rng, 3, n2)
     soft, lengths = V.ragged_lanes([torch.from_numpy(s1).to(cuda),
                                     torch.from_numpy(s2).to(cuda)])
-    n0 = K.acs4_launches, K.traceback4_onehot64_launches
+    n0 = _launches("acs4", "traceback4_onehot64")
     bits, _ = V.viterbi_decode4(soft, lengths, traceback="onehot64")
-    assert (K.acs4_launches, K.traceback4_onehot64_launches) == (n0[0] + 1,
-                                                                 n0[1] + 1)
+    assert _launches("acs4", "traceback4_onehot64") == (n0[0] + 1,
+                                                       n0[1] + 1)
     np.testing.assert_array_equal(bits[:6].cpu().numpy(), m1)
     np.testing.assert_array_equal(bits[6:, :n2].cpu().numpy(), m2)
 
@@ -161,15 +166,13 @@ def test_onehot64_traceback_matches_k2(cuda, t2_max):
 def test_ragged_dispatch_matches_cpu(cuda):
     """FIC-length and MSC-length lanes in one dispatch: the card's bits
     and metrics equal the CPU's plain decode of the same lanes."""
-    from dabtools_tpu_torch.ops import viterbi_cuda as K
     rng = np.random.default_rng(5)
     m1, s1 = _noisy_batch(rng, 8, 768)
     m2, s2 = _noisy_batch(rng, 4, 3072)
     jobs = [torch.from_numpy(s1), torch.from_numpy(s2)]
-    n0 = K.acs4_launches, K.traceback4_launches
+    n0 = _launches("acs4", "traceback4")
     got = V.viterbi_decode_ragged([j.to(cuda) for j in jobs])
-    assert (K.acs4_launches, K.traceback4_launches) == (n0[0] + 1,
-                                                        n0[1] + 1)
+    assert _launches("acs4", "traceback4") == (n0[0] + 1, n0[1] + 1)
     ref = V.viterbi_decode_ragged(jobs)
     for (bits, metric), (rb, rm), m in zip(got, ref, (m1, m2)):
         np.testing.assert_array_equal(bits.cpu().numpy(), rb.numpy())
@@ -212,7 +215,6 @@ def test_receiver_on_card_matches_cpu(cuda):
     )
     from dabtools_tpu_torch.mod.impairments import quantize_u8
     from dabtools_tpu_torch.models.receiver import DabReceiver
-    from dabtools_tpu_torch.ops import viterbi_cuda as K
     from dabtools_tpu_torch.testsignal import modulate
     ens = Ensemble(
         eid=0x4FFF, label="TWO SUBCH",
@@ -227,12 +229,13 @@ def test_receiver_on_card_matches_cpu(cuda):
     u8 = quantize_u8(x)
     rx_cpu = DabReceiver(n_frames=4, device="cpu")
     ref = rx_cpu.feed(u8)
-    n0 = K.acs4_launches, K.traceback4_launches
+    n0 = _launches("acs4", "traceback4")
     rx = DabReceiver(n_frames=4, device=cuda)
     eti = rx.feed(u8)
     assert eti and eti == ref
-    assert (K.acs4_launches - n0[0], K.traceback4_launches - n0[1]) == (
-        rx.device_steps, rx.device_steps)
+    n1 = _launches("acs4", "traceback4")
+    assert (n1[0] - n0[0], n1[1] - n0[1]) == (rx.device_steps,
+                                              rx.device_steps)
     assert rx._rings["1"].is_cuda and rx._cif_count.is_cuda
 
 
@@ -307,10 +310,10 @@ def test_resample_kernel_matches_plain(cuda, rate):
     for r0, s0 in ((0, 0), (up - 1, 1), (int(rng.integers(up)), 7)):
         # the most outputs: the last window ends at the last input
         n_out = ((x.numel() - s0) * up - r0 - 1) // down + 1
-        before = R.resample_launches
+        before = cudalib.launches["dab_resample"]
         got = R.resample_cuda(tail, x, rs._bank_dev, r0, s0, n_out, down)
         want = R.resample_plain(tail, x, rs._bank_dev, r0, s0, n_out, down)
-        assert R.resample_launches == before + 1
+        assert cudalib.launches["dab_resample"] == before + 1
         torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
     with pytest.raises(ValueError, match="leave"):
         R.resample_cuda(tail, x, rs._bank_dev, r0, s0, n_out + 1, down)
@@ -334,9 +337,9 @@ def test_resampler_on_card_past_2_32_counts_launches(cuda):
               + [(50_025, 50_137), (50_137, 200_000), (200_000, 300_000)])
     empty = 0
     for a, b in chunks:
-        before = R.resample_launches
+        before = cudalib.launches["dab_resample"]
         got, want = card(x[a:b]), cpu(x[a:b])
-        assert R.resample_launches == before + (got.size > 0)
+        assert cudalib.launches["dab_resample"] == before + (got.size > 0)
         empty += got.size == 0
         np.testing.assert_allclose(got, want, atol=1e-5)
         assert (card._next_out, card._consumed) == (cpu._next_out,
@@ -371,7 +374,6 @@ def test_channel_batch_on_card_matches_cpu(cuda):
     from dabtools_tpu_torch.fic.config import Ensemble, Subchannel
     from dabtools_tpu_torch.mod.impairments import awgn, carrier_offset
     from dabtools_tpu_torch.models.receiver import block_samples, to_host
-    from dabtools_tpu_torch.ops import viterbi_cuda as K
     from dabtools_tpu_torch.parallel.channel import channel_parallel_block
     from dabtools_tpu_torch.testsignal import modulate
     ens = Ensemble(eid=0x4FFF, label="ONE SUBCH",
@@ -394,9 +396,10 @@ def test_channel_batch_on_card_matches_cpu(cuda):
         return to_host(out), rings
 
     want, _ = run("cpu")
-    n0 = K.acs4_launches, K.traceback4_launches
+    n0 = _launches("acs4", "traceback4")
     got, rings = run(cuda)
-    assert (K.acs4_launches - n0[0], K.traceback4_launches - n0[1]) == (1, 1)
+    n1 = _launches("acs4", "traceback4")
+    assert (n1[0] - n0[0], n1[1] - n0[1]) == (1, 1)
     np.testing.assert_array_equal(got["fib_bytes"], want["fib_bytes"])
     np.testing.assert_array_equal(got["subch"]["1"], want["subch"]["1"])
     assert rings["1"].is_cuda and rings["1"].shape == (3, 16, nb)
@@ -433,7 +436,6 @@ def test_timeblock_span_on_card_matches_cpu(cuda):
     from dabtools_tpu_torch.constants import MODE_I
     from dabtools_tpu_torch.fic.config import Ensemble, Subchannel
     from dabtools_tpu_torch.models.receiver import to_host
-    from dabtools_tpu_torch.ops import viterbi_cuda as K
     from dabtools_tpu_torch.parallel.mesh import make_receiver_mesh
     from dabtools_tpu_torch.parallel.timeblock import (
         halo_sizes,
@@ -460,9 +462,10 @@ def test_timeblock_span_on_card_matches_cpu(cuda):
         return to_host(fn(*(torch.from_numpy(a).to(dev) for a in args), g0))
 
     want = run(torch.device("cpu"))
-    n0 = K.acs4_launches, K.traceback4_launches
+    n0 = _launches("acs4", "traceback4")
     got = run(cuda)
-    assert (K.acs4_launches - n0[0], K.traceback4_launches - n0[1]) == (1, 1)
+    n1 = _launches("acs4", "traceback4")
+    assert (n1[0] - n0[0], n1[1] - n0[1]) == (1, 1)
     for key in ("fib_bytes", "prs_offset"):
         np.testing.assert_array_equal(got[key], want[key])
     np.testing.assert_array_equal(got["subch"]["1"], want["subch"]["1"])
@@ -483,7 +486,6 @@ def test_span_across_two_processes_on_card(cuda, tmp_path):
     from dabtools_tpu_torch.constants import MODE_I
     from dabtools_tpu_torch.fic.config import Ensemble, Subchannel
     from dabtools_tpu_torch.models.receiver import to_host
-    from dabtools_tpu_torch.ops import viterbi_cuda as K
     from dabtools_tpu_torch.parallel.mesh import make_receiver_mesh
     from dabtools_tpu_torch.parallel.timeblock import (
         halo_sizes,
@@ -493,7 +495,7 @@ def test_span_across_two_processes_on_card(cuda, tmp_path):
     # pytest puts tests/ on sys.path; a package named ``tests`` may
     # shadow the repo's directory of that name
     from torch_distributed_worker import launch
-    K.build()                   # once, before the ranks load it
+    cudalib.build()             # once, before the ranks load it
     ens = Ensemble(eid=0x4FFF, label="ONE SUBCH",
                    subchannels=(Subchannel.eep(1, 0, 3, "A", 64),))
     n_time, f_own, warm = 4, 6, 5

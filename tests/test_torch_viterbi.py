@@ -56,19 +56,14 @@ def _punctured(rng, profile, batch, scale):
 
 
 def test_tables_match_jax():
-    pu4, ws4 = V.acs_radix4_matrices()
-    jpu4, jws4 = jv.acs_radix4_matrices()
-    np.testing.assert_array_equal(pu4, jpu4)
-    np.testing.assert_array_equal(ws4, jws4)
-    np.testing.assert_array_equal(V.transition_matrix(),
-                                  jv.transition_matrix())
-    pu, ws = V.acs_matmul_matrices()
-    jpu, jws = jv.acs_matmul_matrices()
-    np.testing.assert_array_equal(pu, jpu)
-    np.testing.assert_array_equal(ws, jws)
+    """The kernels' sign tables equal the JAX package's ``WS`` halves."""
+    np.testing.assert_array_equal(V.ws4_table(),
+                                  jv.acs_radix4_matrices()[1])
+    ws = V.ws2_table()
+    np.testing.assert_array_equal(ws, jv.acs_matmul_matrices()[1])
     # K3's sign rows t and 64 + t are transition_matrix rows 4c + 2b + u
     t = np.arange(64)
-    w = V.transition_matrix()
+    w = jv.transition_matrix()
     np.testing.assert_array_equal(ws[:64], w[4 * (t & 31) + (t >> 5)])
     np.testing.assert_array_equal(ws[64:], w[4 * (t & 31) + 2 + (t >> 5)])
     assert V.NEG_INF == jv.NEG_INF
@@ -471,8 +466,7 @@ def test_warp_branch_metric_signs():
     thread of its sign pattern, give every one of WS4's 256 branch metrics
     (the DAB polynomials tap their first and last register bits), equal to
     ``branch_metrics`` on erasure-heavy input."""
-    _, ws4_np = V.acs_radix4_matrices()
-    ws4 = torch.from_numpy(ws4_np)
+    ws4 = torch.from_numpy(V.ws4_table())
     r = ws4.view(4, 2, 32, 8)                     # (p, t >> 5, j, k)
     torch.testing.assert_close(r[:, 1, :, :4], r[:, 0, :, :4])
     torch.testing.assert_close(r[:, 1, :, 4:], -r[:, 0, :, 4:])
@@ -626,7 +620,7 @@ def test_warp_radix2_branch_metric_signs():
     either to a path metric, never -0, gives the same candidate).  The
     kernel's own sum B, with row j's signs negated where j >> 4 differs
     from j's parity, is A or -A."""
-    ws = torch.from_numpy(V.acs_matmul_matrices()[1])
+    ws = torch.from_numpy(V.ws2_table())
     torch.testing.assert_close(ws[32:64], -ws[:32], rtol=0, atol=0)
     torch.testing.assert_close(ws[64:96], -ws[:32], rtol=0, atol=0)
     torch.testing.assert_close(ws[96:128], ws[:32], rtol=0, atol=0)

@@ -49,7 +49,7 @@ import torch.distributed as dist
 from dabtools_tpu_torch.fic.config import Ensemble
 from dabtools_tpu_torch.models import receiver as trx
 from dabtools_tpu_torch.models.receiver import to_host
-from dabtools_tpu_torch.ops import viterbi_cuda as K
+from dabtools_tpu_torch.ops import cudalib
 from dabtools_tpu_torch.parallel import channel as tchannel
 from dabtools_tpu_torch.parallel.mesh import (
     gather_span,
@@ -203,7 +203,8 @@ def _decode_case(rank: int, case: str, inputs: pathlib.Path,
         info["cells"] = sorted(out)
         result = {"out": gather_span(out, mesh)}
     info["dispatches"] = dispatches
-    info["launches"] = [K.acs4_launches, K.traceback4_launches]
+    info["launches"] = [cudalib.launches["dab_acs4"],
+                        cudalib.launches["dab_traceback4"]]
     torch.save(result, outdir / f"rank{rank}.pt")
     (outdir / f"rank{rank}.json").write_text(json.dumps(info))
 

@@ -14,11 +14,12 @@ CUDA card, and how they compare with another version of their sources.
    lanes some schedulers hold two.
 2. With ``--against``, builds the kernels of another checkout's
    ``dabtools_tpu_torch/csrc`` (for example the parent commit's, unpacked
-   with ``git archive``) and times all five kernels of both builds at the
-   shapes ``chip_smoke.py`` uses, in turns (this, other, other, this): K1,
-   K2 and K2' on 640 ragged lanes (64 x 387 + 576 x 1539 double steps),
-   K3 and K4 on 640 lanes of 3079 steps.  The two builds' outputs must be
-   equal.
+   with ``git archive``) as the package builds its own, into a ``_build/``
+   directory beside those sources, and times all five kernels of both
+   builds at the shapes ``chip_smoke.py`` uses, in turns (this, other,
+   other, this): K1, K2 and K2' on 640 ragged lanes (64 x 387 + 576 x
+   1539 double steps), K3 and K4 on 640 lanes of 3079 steps.  The two
+   builds' outputs must be equal.
 3. Prints each kernel's SASS instruction count (``cuobjdump``), its
    longest run without a branch (in K1-K4 and K2' the unrolled walk of a
    full chunk, 32 (double) steps), and how many warp votes (``VOTE``),
@@ -46,6 +47,7 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 from chip_smoke import KERNEL_RUN, time_ms  # noqa: E402
+from dabtools_tpu_torch.ops import cudalib  # noqa: E402
 from dabtools_tpu_torch.ops import viterbi as V  # noqa: E402
 from dabtools_tpu_torch.ops import viterbi_cuda as K  # noqa: E402
 
@@ -61,16 +63,6 @@ def _smi(query: str) -> str:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True,
                           timeout=60).stdout.strip().splitlines()[0]
-
-
-def _build_other(csrc: pathlib.Path) -> pathlib.Path:
-    """Build the ``.cu`` sources of ``csrc`` into one library, with the
-    port's flags and C interface."""
-    so = K.BUILD_DIR / "probe_against.so"
-    K.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    K._run([[K._nvcc(), *K.NVCC_FLAGS, "-o", str(so),
-             *map(str, sorted(csrc.glob("*.cu")))]])
-    return so
 
 
 def _sass(lib: pathlib.Path) -> str:
@@ -141,11 +133,11 @@ def against(rng, ws4, other: ctypes.CDLL) -> None:
     soft2 = rng.normal(size=(640, T_RADIX2, 4)).astype(np.float32)
     soft4 = torch.from_numpy(soft2).cuda()
     ws2 = V._ws2(soft4.device)
-    this = K.build()
+    this = cudalib.build()
     libs = {"this": this, "other": other}
     outs = {}
     for name, lib in libs.items():
-        K._lib = lib
+        cudalib.lib = lib
         dec4, m4 = K.acs4(soft8, t2, ws4)
         dec2, m2 = K.acs2(soft4, ws2)
         outs[name] = (dec4, m4, K.traceback4(dec4),
@@ -165,14 +157,14 @@ def against(rng, ws4, other: ctypes.CDLL) -> None:
         "K4 traceback2": (lambda: K.traceback2(dec2), T_RADIX2),
     }
     for name in ("this", "other", "other", "this"):
-        K._lib = libs[name]
+        cudalib.lib = libs[name]
         line = []
         for kname, (fn, steps) in kernels.items():
             ms = time_ms(fn, REPS, KERNEL_RUN)
             line.append(f"{kname} {ms:.4f} ms ({ms * 1e3 / steps:.4f} "
                         f"us/step)")
         print(f"{name:5s}: " + "; ".join(line))
-    K._lib = this
+    cudalib.lib = this
 
 
 def main() -> int:
@@ -185,14 +177,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("torch_viterbi4_probe: no CUDA device")
     print(_smi("name,power.limit"))
-    K.build()
+    cudalib.build()
     rng = np.random.default_rng(7)
     ws4 = V._ws4(torch.device("cuda"))
     lane_scaling(rng, ws4, V._ws2(torch.device("cuda")))
-    builds = {"this": K.library_path()}
+    builds = {"this": cudalib.library_path()}
     if args.against:
-        builds["other"] = _build_other(args.against)
-        against(rng, ws4, K.load(builds["other"]))
+        builds["other"] = cudalib.compile_library(args.against)
+        against(rng, ws4, cudalib.load(builds["other"]))
     print(f"SM clock after the runs: {_smi('clocks.sm,clocks.max.sm')}")
     for build, so in builds.items():
         for name, (n, run, ops) in _instruction_counts(_sass(so)).items():
