@@ -38,8 +38,10 @@ of which raises on failure:
    quantized to u8 and fed to ``DabReceiver(n_frames=16, device="cuda")``.
    The acquired sub-channels must equal the mux's, every FIB CRC after
    acquisition must pass, every ETI frame's 9 payloads must equal the
-   modulator's bytes, and K1/K2 must have launched once per device step.
-   The device operations of one stream's 8-frame complex64 block (the
+   modulator's bytes, and K1/K2 must have run once per device step on the
+   device (counted in a device trace, so the blocks replayed as a CUDA
+   graph count) and launched from Python once per block run op by op and
+   twice per capture.  The device operations of one stream's 8-frame complex64 block (the
    count phase 8's batch is held against; it must stay within 5 of the
    403 it had before the demod chain took a stream axis) and of a 16-frame
    u8 block.  Then one warm ``process_block`` under PyTorch's sync debug
@@ -178,7 +180,9 @@ of which raises on failure:
    ``traceback4_plain`` on that block's 576 lanes of 9 lengths.
 
 Every path starts with all five kernels' counts in ``cudalib.launches``
-at 0 and reads them when it ends.  Each phase prints its seconds.  The line before the last
+at 0 and reads them when it ends.  A path through ``DabReceiver`` also
+counts K1 and K2 in a ``torch.profiler`` trace of the card: a block that
+the receiver replays as a CUDA graph launches nothing from Python.  Each phase prints its seconds.  The line before the last
 is the kernels' JSON record, with each kernel's bound: the larger of
 the bytes it must move over the
 card's memory rate and the operations it must do over its float32 rate
@@ -189,10 +193,12 @@ prints no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import importlib.util
 import json
 import pathlib
+import re
 import socket
 import statistics
 import subprocess
@@ -381,13 +387,69 @@ def _counts() -> dict:
     return {name: cudalib.launches[f"dab_{name}"] for name in KERNELS}
 
 
-def _launched_per_step(what: str, launches: dict, steps: int) -> None:
-    """K1 and K2 launched once per device step of ``what``."""
+def _launched_per_step(what: str, launches: dict, steps: int,
+                       unit: str = "device steps") -> None:
+    """K1 and K2 launched once per device step of ``what`` (or once per
+    ``unit``)."""
     for name in ("acs4", "traceback4"):
         if launches[name] != steps:
             raise AssertionError(f"{what}: {name} launched "
-                                 f"{launches[name]} times in {steps} device "
-                                 f"steps")
+                                 f"{launches[name]} times in {steps} "
+                                 f"{unit}")
+
+
+@contextlib.contextmanager
+def _device_kernels():
+    """A ``torch.profiler`` trace of the card around the ``with`` block.
+    The dict it yields is filled on exit: how many times the device ran
+    each of ``KERNELS``, counted by the kernel's name in the trace (a CUDA
+    graph's replays included).  A trace with no device operation fails,
+    so every count is measured."""
+    from torch.profiler import ProfilerActivity, profile
+    ran = {}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        yield ran
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    _measured((sum(e.count for e in events), 0.0), "kernel count")
+    by_name = collections.Counter()
+    for e in events:
+        m = re.search(r"(\w+)_kernel\(", e.key)
+        if m:
+            by_name[m.group(1)] += e.count
+    ran.update({name: by_name[name] for name in KERNELS})
+
+
+def _passes(rx) -> collections.Counter:
+    """``rx``'s device steps by how its chain ran: ``eager`` (op by op),
+    ``captures`` (recorded as two CUDA graphs, then replayed) and
+    ``replays``, after checking that they add up to its device steps."""
+    c = collections.Counter({"eager": rx.device_steps} if rx.graphs is None
+                            else rx.graphs.counts)
+    if c["eager"] + c["captures"] + c["replays"] != rx.device_steps:
+        raise AssertionError(f"graph passes {dict(c)} are not the "
+                             f"{rx.device_steps} device steps")
+    return c
+
+
+def _receiver_launched(what: str, rx, launches: dict, ran: dict) -> None:
+    """K1 and K2 of receiver ``rx``'s run: once per device step on the
+    device (``ran``, from :func:`_device_kernels`), and from Python
+    (``launches``) once per pass that launched the chain: each op-by-op
+    pass and each of a capture's two recordings."""
+    c = _passes(rx)
+    _launched_per_step(f"{what}, on the device", ran, rx.device_steps)
+    _launched_per_step(f"{what}, from Python", launches,
+                       c["eager"] + 2 * c["captures"],
+                       "passes that launched the chain")
+
+
+def _graph_text(rx) -> str:
+    """``rx``'s CUDA graph passes, in words."""
+    c = _passes(rx)
+    return (f"{c['replays']} of {rx.device_steps} device steps replayed as "
+            f"a CUDA graph ({c['captures']} captures, {c['eager']} op by "
+            f"op)")
 
 
 def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -655,7 +717,8 @@ def onehot_phase(kern: dict) -> dict:
 
 def end_to_end_phase(rng) -> dict:
     """The flagship decoded end to end from u8 IQ on the card; returns the
-    launch counts of that run, the u8 signal and the ensemble."""
+    kernels' runs on the device in that decode, the u8 signal and the
+    ensemble."""
     ens = S.flagship_ensemble()
     t0 = time.perf_counter()
     x, payload = S.modulate(ens, E2E_FRAMES, rng)
@@ -666,7 +729,8 @@ def end_to_end_phase(rng) -> dict:
 
     rx = DabReceiver(n_frames=BLOCK_FRAMES, device="cuda")
     _reset_counts()
-    eti = rx.feed(u8)
+    with _device_kernels() as ran:
+        eti = rx.feed(u8)
     launches = _counts()
 
     if rx.ensemble is None:
@@ -688,11 +752,15 @@ def end_to_end_phase(rng) -> dict:
     n = S.check_eti_payloads(eti, payload, rx._activation_cif)
     print(f"ETI: {n} frames, all 9 sub-channel payloads "
           f"byte-identical to the modulator's")
-    _launched_per_step("end to end", launches, rx.device_steps)
-    print(f"launches: {launches} in {rx.device_steps} device steps")
+    _receiver_launched("end to end", rx, launches, ran)
+    print(f"kernels run on the device: {ran}, launched from Python: "
+          f"{launches}, in {rx.device_steps} device steps; "
+          f"{_graph_text(rx)}")
+    if not rx.graphs.counts["replays"]:
+        raise AssertionError("end to end: no block replayed")
     single_stream_ops(u8, ens)
     sync_free_check(rx, u8[: 2 * block_samples(BLOCK_FRAMES)])
-    return {"launches": launches, "u8": u8, "ensemble": ens}
+    return {"launches": ran, "u8": u8, "ensemble": ens}
 
 
 def single_stream_ops(u8: np.ndarray, ens) -> None:
@@ -732,13 +800,27 @@ def sync_free_check(rx, block_u8: np.ndarray) -> None:
     included if ``rx`` has it on), under PyTorch's sync debug mode
     'error': any op inside that waits for the device (a device->host
     read, a pageable upload) raises.  The block's one upload happens
-    before, its one download after."""
+    before, its one download after.  Then the same block as one replay
+    of ``rx``'s CUDA graph, under the same mode (two warm calls before
+    it capture the graph where ``rx`` has not yet)."""
     x = rx._upload(block_u8)
-    _sync_free(f"process_block{' with TII' if rx._tii_enabled else ''}",
-               lambda: process_block(
-                   x, rx._rings, rx._cif_count,
-                   ensemble=rx._decode.decode_config(), mode=rx.mode,
-                   n_frames=rx.n_frames, tii=rx._tii_enabled))
+    what = f"process_block{' with TII' if rx._tii_enabled else ''}"
+
+    def block(graphs=None):
+        return process_block(
+            x, rx._rings, rx._cif_count, ensemble=rx._decode.decode_config(),
+            mode=rx.mode, n_frames=rx.n_frames, probe_subs=rx._probe_subs,
+            tii=rx._tii_enabled, graphs=graphs)
+
+    _sync_free(what, block)
+    for _ in range(2):
+        block(rx.graphs)
+    replays = rx.graphs.counts["replays"]
+    _sync_free(f"{what} replayed as a CUDA graph",
+               lambda: block(rx.graphs))
+    if rx.graphs.counts["replays"] != replays + 1:
+        raise AssertionError(f"{what}: no graph replay "
+                             f"({dict(rx.graphs.counts)})")
 
 
 def tii_phase(rng, u8_no_tii: np.ndarray) -> None:
@@ -1180,7 +1262,8 @@ def mixed_phase(rng) -> None:
     u8 = S.impaired_u8(x, rng, SNR_DB, CFO_HZ, -TIMING_OFFSET)
     rx = DabReceiver(n_frames=BLOCK_FRAMES, ensemble=mix, device="cuda")
     _reset_counts()
-    eti = rx.feed(u8)
+    with _device_kernels() as ran:
+        eti = rx.feed(u8)
     launches = _counts()
     raw = b"".join(eti)
     n = S.check_eti_payloads(eti, payload, S.first_payload_cif(raw, payload))
@@ -1195,9 +1278,10 @@ def mixed_phase(rng) -> None:
         [f.subchannel_data(S.MIXED_DABPLUS) for f in frames], aus)
     print(f"DAB+ sub-channel: {n_au} access units, every CRC good, a run "
           f"of the builder's")
-    _launched_per_step("mixed mux", launches, rx.device_steps)
-    print(f"mixed mux launches: {launches} in {rx.device_steps} device "
-          f"steps")
+    _receiver_launched("mixed mux", rx, launches, ran)
+    print(f"mixed mux: kernels run on the device {ran}, launched from "
+          f"Python {launches}, in {rx.device_steps} device steps; "
+          f"{_graph_text(rx)}")
 
 
 def dabplus17_phase(rng) -> None:
@@ -1214,7 +1298,7 @@ def dabplus17_phase(rng) -> None:
     if n < 64:
         raise AssertionError(f"dabplus17: only {n} ETI frames")
     print(f"dabplus17: {DP17_FRAMES} frames u8 (AWGN {SNR_DB} dB, CFO "
-          f"{CFO_HZ} Hz); {rx.device_steps} device steps; {n} ETI frames, "
+          f"{CFO_HZ} Hz); {_graph_text(rx)}; {n} ETI frames, "
           f"all 17 payloads byte-identical to the modulator's")
 
     # one block as the receiver runs it, its Viterbi jobs recorded
@@ -1617,16 +1701,19 @@ def lab_chain_phase(card: str) -> None:
     ``dab2eti`` on the card."""
     with tempfile.TemporaryDirectory() as tmp:
         _reset_counts()
-        res = S.lab_chain(pathlib.Path(tmp), "cuda")
+        with _device_kernels() as ran:
+            res = S.lab_chain(pathlib.Path(tmp), "cuda")
         launches = _counts()
     print(f"lab chain: dabmux -> eti2iq -> dab2eti (cuda) -> etiinfo, "
           f"eti2audio: {res['frames']} off-air ETI frames, sub-channels "
           f"1-3 equal to the dabmux ETI's; FIG 0/14, epg.bin, .mp2, .aac, "
           f"DLS, DL Plus and the etiinfo metadata all through")
-    _launched_per_step("lab chain", launches, res["device_steps"])
-    print(f"lab chain launches: {launches} in {res['device_steps']} device "
-          f"steps")
-    print(f"lab chain: dab2eti {res['dab2eti_s']:.3f} s for a capture "
+    _receiver_launched("lab chain", res["receiver"], launches, ran)
+    print(f"lab chain: kernels run on the device {ran}, launched from "
+          f"Python {launches}, in {res['device_steps']} device steps; "
+          f"{_graph_text(res['receiver'])}")
+    print(f"lab chain: dab2eti {res['dab2eti_s']:.3f} s (under a device "
+          f"trace) for a capture "
           f"of {res['air_s']:.3f} s of air = "
           f"{res['air_s'] / res['dab2eti_s']:.2f}x real time (host clock, "
           f"u8 file to ETI file, the receiver's set-up and acquisition "
@@ -1686,14 +1773,20 @@ def _recording_dispatches(dispatches):
 
 def _card_rx(x: np.ndarray, n_frames: int = 4, dispatches=None):
     """``x`` through ``DabReceiver(n_frames, device="cuda")``; returns
-    (rx, its ETI) after checking K1/K2 launched once per device step.
-    With a list ``dispatches``, each Viterbi dispatch's soft jobs are
-    appended to it."""
+    (rx, its ETI) after checking K1/K2 ran once per device step (see
+    :func:`_receiver_launched`).  With a list ``dispatches``, the
+    receiver launches op by op (a replay runs no Python) and each device
+    step's Viterbi dispatch's soft jobs are appended to it."""
     rx = DabReceiver(n_frames=n_frames, device="cuda")
+    if dispatches is not None:
+        rx.graphs = None
     _reset_counts()
-    with _recording_dispatches(dispatches):
+    with _recording_dispatches(dispatches), _device_kernels() as ran:
         eti = rx.feed(x)
-    _launched_per_step("receiver", _counts(), rx.device_steps)
+    _receiver_launched("receiver", rx, _counts(), ran)
+    if dispatches is not None and len(dispatches) != rx.device_steps:
+        raise AssertionError(f"{len(dispatches)} Viterbi dispatches in "
+                             f"{rx.device_steps} device steps")
     if rx.ensemble is None:
         raise AssertionError("no ensemble acquired")
     return rx, eti
@@ -1914,15 +2007,16 @@ def _soak_check(card: str) -> None:
     _reset_counts()
     eti, mem = [], []           # (device steps, memory_allocated) from 10
     t0 = time.perf_counter()
-    for pos in range(0, x.size, SOAK_STEP):
-        eti += rx.feed(x[pos:pos + SOAK_STEP])
-        if rx.device_steps >= 10:
-            mem.append((rx.device_steps, torch.cuda.memory_allocated()))
-    wall = time.perf_counter() - t0
+    with _device_kernels() as ran:
+        for pos in range(0, x.size, SOAK_STEP):
+            eti += rx.feed(x[pos:pos + SOAK_STEP])
+            if rx.device_steps >= 10:
+                mem.append((rx.device_steps, torch.cuda.memory_allocated()))
+        wall = time.perf_counter() - t0
     mem_10, mem_end = mem[0], mem[-1][1]
     mem_mid = mem[len(mem) // 2]
     peak = torch.cuda.max_memory_allocated()
-    _launched_per_step("soak", _counts(), rx.device_steps)
+    _receiver_launched("soak", rx, _counts(), ran)
     n = S.check_eti_payloads(eti, payload, rx._activation_cif)
     frames = list(EtiParser().feed(b"".join(eti)))
     if n < (SOAK_FRAMES - 30) * MODE_I.n_cifs:
@@ -1946,9 +2040,10 @@ def _soak_check(card: str) -> None:
           f"to modulate) in chunks of {SOAK_STEP} samples through "
           f"DabReceiver(n_frames=8, device='cuda'): {n} ETI frames, 0 "
           f"payload mismatches, FCT continuous, host state within its "
-          f"bounds, K1/K2 once per each of {rx.device_steps} device steps")
+          f"bounds, K1/K2 once per each of {rx.device_steps} device steps; "
+          f"{_graph_text(rx)}")
     print(f"soak: {wall:.3f} s = {air / wall:.2f}x real time (host clock, "
-          f"feed included); memory_allocated {mem_10[1] / 2**20:.3f} MiB "
+          f"feed included, under a device trace); memory_allocated {mem_10[1] / 2**20:.3f} MiB "
           f"after device step {mem_10[0]}, {mem_mid[1] / 2**20:.3f} after "
           f"step {mem_mid[0]}, {mem_end / 2**20:.3f} after the last "
           f"({min(m for _, m in mem) / 2**20:.3f}-"

@@ -32,6 +32,7 @@ from dabtools_tpu_torch import constants as C
 from dabtools_tpu_torch.eti.assemble import EtiAssembler
 from dabtools_tpu_torch.fic.config import Ensemble
 from dabtools_tpu_torch.fic.fig import FigParser
+from dabtools_tpu_torch.models.graphs import ChainGraphs
 from dabtools_tpu_torch.ops.bits import pack_bits
 from dabtools_tpu_torch.ops.fec import (
     depuncture,
@@ -265,7 +266,7 @@ def pipeline_core(x, frame_start_guesses, rings, cif_count, *,
 def process_block(x, rings, cif_count, *, ensemble: Ensemble | None,
                   mode=C.MODE_I, n_frames: int = 8, search: int = 192,
                   max_int_cfo: int = 8, probe_subs: tuple = (),
-                  tii: bool = False):
+                  tii: bool = False, graphs: ChainGraphs | None = None):
     """Decode ``n_frames`` transmission frames from sample block ``x``.
 
     Coarse-syncs on the null symbol, then runs :func:`pipeline_core`.
@@ -277,28 +278,47 @@ def process_block(x, rings, cif_count, *, ensemble: Ensemble | None,
 
     ``x`` may be complex64 samples OR raw uint8 offset-128 interleaved IQ
     (the RTL-SDR wire format, 2 bytes/sample), converted on the device, so
-    a u8 source ships 4x fewer bytes to the device.  Span ``rx.enqueue``
-    (the launches), with ``enqueue.sync`` and :func:`pipeline_core`'s
-    stages inside it.
+    a u8 source ships 4x fewer bytes to the device.
+
+    ``graphs``: a receiver's ``models.graphs.ChainGraphs``, which on a
+    CUDA device captures this chain once per key and replays it for
+    later blocks; its outputs are then valid until the next call with
+    the same cache.  None launches the chain op by op.
+
+    Span ``rx.enqueue`` (the launches), with ``enqueue.sync`` and
+    :func:`pipeline_core`'s stages inside it on a pass that launches op
+    by op, and ``enqueue.graph`` on a replay.
     """
+    kw = dict(ensemble=ensemble, mode=mode, n_frames=n_frames,
+              search=search, max_int_cfo=max_int_cfo,
+              probe_subs=probe_subs, tii=tii)
     with spans.span("rx.enqueue"):
-        with spans.span("enqueue.sync"):
-            if x.dtype == torch.uint8:
-                f = (x.to(torch.float32) - 128.0) / 64.0
-                x = torch.complex(f[0::2], f[1::2])
-            sync = coarse_null_sync(x, mode)
-            ns = sync["null_start"]
-            frame_off = torch.arange(n_frames, dtype=torch.int32,
-                                     device=x.device) * mode.frame_size
-            sync_diag = {"null_start": ns, "null_ratio": sync["null_ratio"]}
-            if tii:
-                t = tii_powers_at(x, ns, n_frames, mode)
-                sync_diag.update(tii_powers=t["powers"],
-                                 tii_floor=t["floor"])
-        return pipeline_core(
-            x, ns + frame_off, rings, cif_count, ensemble=ensemble,
-            mode=mode, search=search, max_int_cfo=max_int_cfo,
-            sync_diag=sync_diag, probe_subs=probe_subs)
+        if graphs is None:
+            return _chain(x, rings, cif_count, **kw)
+        return graphs(_chain, x, rings, cif_count, **kw)
+
+
+def _chain(x, rings, cif_count, *, ensemble, mode, n_frames, search,
+           max_int_cfo, probe_subs, tii):
+    """:func:`process_block`'s device chain, launched op by op (what a
+    ``ChainGraphs`` capture records)."""
+    with spans.span("enqueue.sync"):
+        if x.dtype == torch.uint8:
+            f = (x.to(torch.float32) - 128.0) / 64.0
+            x = torch.complex(f[0::2], f[1::2])
+        sync = coarse_null_sync(x, mode)
+        ns = sync["null_start"]
+        frame_off = torch.arange(n_frames, dtype=torch.int32,
+                                 device=x.device) * mode.frame_size
+        sync_diag = {"null_start": ns, "null_ratio": sync["null_ratio"]}
+        if tii:
+            t = tii_powers_at(x, ns, n_frames, mode)
+            sync_diag.update(tii_powers=t["powers"],
+                             tii_floor=t["floor"])
+    return pipeline_core(
+        x, ns + frame_off, rings, cif_count, ensemble=ensemble,
+        mode=mode, search=search, max_int_cfo=max_int_cfo,
+        sync_diag=sync_diag, probe_subs=probe_subs)
 
 
 _NP_DTYPES = {torch.float32: np.float32, torch.int32: np.int32,
@@ -442,6 +462,11 @@ class DabReceiver:
         self.stats: list[FrameStats] = []
         # Device steps run (process_block calls, replays included).
         self.device_steps = 0
+        # The device chain as CUDA graphs, one pair per decode key
+        # (models/graphs.py); its ``counts`` tally eager passes, captures
+        # and graph replays.  None (the CPU) launches op by op.
+        self.graphs = (ChainGraphs() if self.device.type == "cuda"
+                       else None)
         self._reconfig_candidate = None
         # MCI FIBs repeat identically frame after frame; skip re-parsing
         # duplicates (but still tick the parser's staleness clock).
@@ -712,11 +737,13 @@ class DabReceiver:
         # the upload is a temporary, freed when process_block returns: the
         # caching allocator then hands its memory to the next upload (a
         # replay's included), and the device's memory layout, which the
-        # kernels' times depend on, stays as it is without spans
+        # kernels' times depend on, stays as it is without spans; a graph
+        # replay copies it into its static input
         out_dev, rings, cif_next = process_block(
             self._upload(x), self._rings or {}, self._cif_count,
             ensemble=ens, mode=self.mode, n_frames=self.n_frames,
-            probe_subs=self._probe_subs, tii=self._tii_enabled)
+            probe_subs=self._probe_subs, tii=self._tii_enabled,
+            graphs=self.graphs)
         self.device_steps += 1
         out = to_host(out_dev)                 # the block's one D2H copy
         self._cif_count = cif_next

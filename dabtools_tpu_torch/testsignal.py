@@ -445,7 +445,7 @@ def lab_chain(tmp: pathlib.Path, torch_device: str) -> dict:
     receiver's activation CIF on, FIG 0/14 came through, ``epg.bin`` is
     the MOT object byte for byte beside an ``.mp2`` and an ``.aac`` file,
     and the DLS, DL Plus and ``etiinfo`` metadata lines appear.  Returns
-    the off-air frame count, the device steps of ``dab2eti``'s receiver,
+    the off-air frame count, ``dab2eti``'s receiver and its device steps,
     its seconds (host clock, file to file) and the air time of the
     capture in seconds."""
     from dabtools_tpu_torch.cli import (
@@ -522,6 +522,7 @@ def lab_chain(tmp: pathlib.Path, torch_device: str) -> dict:
                if not any(s in line for line in labels)]
     if missing:
         raise AssertionError(f"eti2audio --labels lacks {missing}")
-    return {"frames": len(got), "device_steps": rx.device_steps,
+    return {"frames": len(got), "receiver": rx,
+            "device_steps": rx.device_steps,
             "dab2eti_s": seconds,
             "air_s": iq.stat().st_size / 2 / C.SAMPLE_RATE}
