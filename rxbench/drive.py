@@ -12,7 +12,7 @@ from dabtools_tpu_torch import constants as C
 from dabtools_tpu_torch.mod.impairments import u8_to_complex
 from dabtools_tpu_torch.models import receiver
 from dabtools_tpu_torch.models.receiver import DabReceiver
-from dabtools_tpu_torch.ops import viterbi_cuda
+from dabtools_tpu_torch.ops import cudalib
 from dabtools_tpu_torch.ops.fir import Channelizer
 from dabtools_tpu_torch.ops.resample import Resampler
 from dabtools_tpu_torch.tables.bandiii import blocks_within
@@ -27,11 +27,12 @@ SPAN_TARGETS = {"feed": [(DabReceiver, "feed")],
 
 
 def build(device: str) -> None:
-    """Build or load the native host library and, on a card, the Viterbi
-    kernels (both cached inside the checkout)."""
+    """Build or load the native host library and, on a card, the port's
+    CUDA library, the Viterbi and resampler kernels (both cached inside
+    the checkout)."""
     native.lib()
     if device == "cuda":
-        viterbi_cuda.build()
+        cudalib.build()
 
 
 class Path:

@@ -34,6 +34,7 @@ from .config import Ensemble, Service, ServiceComponent, Subchannel
 from .fig import build_fibs_for_ensemble
 from .impairments import awgn, carrier_offset, quantize_u8
 from .modulator import Modulator, SubchannelSource
+from .puncturing import UEP_TABLE_31
 from .signals import fft_resample
 
 WARM_FRAMES = 4          # 16 CIFs: past the time interleaver's 15-CIF depth
@@ -41,19 +42,35 @@ MODE = C.MODE_I
 CIFS = MODE.n_cifs
 
 
+def subchannel_from_spec(s: dict) -> Subchannel:
+    """A ``Subchannel`` from a configuration's sub-channel entry: ``id``,
+    ``start_cu``, ``kbps`` and ``protection``, either "EEP-<level><option>"
+    (EN 300 401 Tables 7-8, e.g. "EEP-3A") or "UEP-<level>" with level 1-5
+    (e.g. "UEP-3"), which names the one row of Table 31 with that level and
+    bit rate and is signalled in FIG 0/1's short form by its index."""
+    kind, prot = s["protection"].split("-")
+    if kind == "EEP":
+        return Subchannel.eep(s["id"], start_cu=s["start_cu"],
+                              level=int(prot[0]), option=prot[1],
+                              bitrate_kbps=s["kbps"])
+    if kind != "UEP":
+        raise ValueError(f"protection is neither EEP nor UEP: {s}")
+    index = next((i for i, (_, level, kbps) in enumerate(UEP_TABLE_31)
+                  if (str(level), kbps) == (prot, s["kbps"])), None)
+    if index is None:
+        raise ValueError(f"no EN 300 401 Table 31 row for {s}")
+    sub = Subchannel.uep(s["id"], start_cu=s["start_cu"], table_index=index)
+    if not sub.decodable:
+        raise ValueError(f"the Table 33 profile of {s} is not bundled, so "
+                         f"the generator cannot modulate it")
+    return sub
+
+
 def ensemble_from_spec(spec: dict) -> Ensemble:
     """An ``Ensemble`` from a configuration's ensemble entry: ``eid``,
-    ``label``, ``subchannels`` (``id``, ``start_cu``, ``protection``
-    "EEP-<level><option>", ``kbps``) and ``services`` (``sid``,
-    ``label``, ``subchid``)."""
-    subs = []
-    for s in spec["subchannels"]:
-        kind, prot = s["protection"].split("-")
-        if kind != "EEP":
-            raise ValueError(f"only EEP sub-channels are generated: {s}")
-        subs.append(Subchannel.eep(s["id"], start_cu=s["start_cu"],
-                                   level=int(prot[0]), option=prot[1],
-                                   bitrate_kbps=s["kbps"]))
+    ``label``, ``subchannels`` (as :func:`subchannel_from_spec` reads
+    them) and ``services`` (``sid``, ``label``, ``subchid``)."""
+    subs = [subchannel_from_spec(s) for s in spec["subchannels"]]
     svcs = tuple(
         Service(sid=v["sid"], label=v["label"], components=(
             ServiceComponent(tmid=0, subchid=v["subchid"]),))

@@ -10,7 +10,9 @@ alone, never from one implementation's intermediates:
   a codeword: 768 data bits, 2304 punctured soft bits; EN 300 401
   s11.2) and, once it has an ensemble, one codeword per sub-channel and
   CIF (4n each): ``kbps`` x 24 data bits and the sub-channel's CUs x 64
-  soft bits (EEP sizes of EN 300 401 Tables 7 and 8).
+  soft bits (EEP sizes of EN 300 401 Tables 7 and 8; a UEP sub-channel's
+  size is its Table 31 row's, from ``rxbench/gen/puncturing.py``, its
+  padding bits included).
 * Steps.  A lane of d data bits is d + 6 trellis steps (the K = 7
   code's zero tail).
 * Operations per step.  Each of the 64 states adds two branch metrics
@@ -33,6 +35,8 @@ add-compare-select and traceback kernels of ``csrc/viterbi4.cu`` and
 
 import re
 
+from rxbench.gen.puncturing import UEP_TABLE_31
+
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 OPS_PER_STEP = 64 * 3 + 16 * 3
@@ -50,8 +54,12 @@ def lanes(spec, n_frames: int) -> list[tuple[int, int]]:
     out = [(2304, 768)] * (4 * n_frames)
     for s in (spec or {}).get("subchannels", ()):
         kind, prot = s["protection"].split("-")
-        unit, cus = EEP_CUS[prot[1]]
-        soft = cus[int(prot[0]) - 1] * s["kbps"] // unit * 64
+        if kind == "UEP":
+            soft = next(cus for cus, level, kbps in UEP_TABLE_31
+                        if (str(level), kbps) == (prot, s["kbps"])) * 64
+        else:
+            unit, cus = EEP_CUS[prot[1]]
+            soft = cus[int(prot[0]) - 1] * s["kbps"] // unit * 64
         out += [(soft, s["kbps"] * 24)] * (4 * n_frames)
     return out
 

@@ -13,7 +13,24 @@ FC: FCT(8) = frame count mod 250, FICF(1) = 1, NST(7), FP(3) = frame
 count mod 8, MID(2) = 1 (Mode I), FL(11) = (STC + EOH + MST) bytes / 4.
 STC entry: SCID(6) SAD(10) TPL(6) STL(10), with SAD the sub-channel's
 start in the MST in 64-bit words (the FIC's 12 first), STL its length
-in 64-bit words and TPL = 0b1 + option(3) + level-1(2) for EEP.
+in 64-bit words (``kbps`` x 3 / 8, for EEP and UEP alike) and TPL, "type
+and protection level":
+
+* EEP "EEP-<level><option>": 0b1 + option(3) + level-1(2), that is
+  ``0x20 | option << 2 | (level - 1)``, option A 0 and B 1;
+* UEP "UEP-<level>": 0b01 + 0(2) + level-1(2), that is
+  ``0x10 | (level - 1)``, the level read from the configuration.
+
+Both are how ODR-DabMux, a public ETI multiplexer, is recalled to write
+them; the standard's text is not at hand, so this reading stands as
+``docs/INTEROP.md`` row 8 does, at K-low.  The port
+(``eti/assemble.py::tpl_for_subchannel``) writes a UEP entry's TPL as its
+Table 31 index in 5 bits instead, clamped to 31.  That reading cannot
+represent indices 32-63 (every row from 128 kbit/s up among them), and a
+6-bit field cannot hold the short form's 7 bits (table switch and index),
+so the reference does not follow it: the two disagree on the TPL of a
+UEP entry, and on nothing else, until the port takes this reading.
+
 The header CRC covers FC, STC and MNSC; the EOF CRC the MST; both are
 CRC-16/CCITT (init 0xFFFF, complemented).  ERR is 0xFF for a frame
 received without error, FSYNC alternates 0x073AB6 / 0xF8C549 with the
@@ -39,6 +56,16 @@ def crc16(data: bytes) -> int:
     return binascii.crc_hqx(data, 0xFFFF) ^ 0xFFFF
 
 
+def _tpl(s: dict) -> int:
+    """The STC TPL of sub-channel entry ``s`` (the module's note)."""
+    kind, prot = s["protection"].split("-")
+    if kind == "EEP":
+        return 0x20 | ({"A": 0, "B": 1}[prot[1]] << 2) | (int(prot[0]) - 1)
+    if kind == "UEP" and prot in ("1", "2", "3", "4", "5"):
+        return 0x10 | (int(prot) - 1)
+    raise ValueError(f"no TPL for {s}")
+
+
 class Expected:
     """The frames a receiver of ensemble ``truth.spec`` must emit for the
     pool CIFs of ``truth``."""
@@ -47,10 +74,7 @@ class Expected:
         subs = sorted(truth.spec["subchannels"], key=lambda s: s["start_cu"])
         stc, sad = bytearray(), FIC_BYTES // 8
         for s in subs:
-            kind, prot = s["protection"].split("-")
-            if kind != "EEP":
-                raise ValueError(f"no TPL for {s}")
-            tpl = 0x20 | ({"A": 0, "B": 1}[prot[1]] << 2) | (int(prot[0]) - 1)
+            tpl = _tpl(s)
             stl = s["kbps"] * 3 // 8
             stc += bytes([(s["id"] << 2) | (sad >> 8), sad & 0xFF,
                           (tpl << 2) | (stl >> 8), stl & 0xFF])

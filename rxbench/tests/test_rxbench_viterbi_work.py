@@ -63,3 +63,16 @@ def test_roofline_reads_named_kernels_only():
         == ""
     assert v.kernel_name("traceback2_kernel(unsigned int const*)") == \
         "traceback2_kernel"
+
+
+def test_uep_lanes_count_table_31():
+    """A UEP lane is its Table 31 row's CUs x 64 soft bits (padding bits
+    included) and ``kbps`` x 24 data bits, four codewords a frame."""
+    v = _metric()
+    spec = {"subchannels": [{"protection": "UEP-3", "kbps": 128},
+                            {"protection": "UEP-3", "kbps": 192},
+                            {"protection": "UEP-3", "kbps": 80},
+                            {"protection": "UEP-1", "kbps": 128}]}
+    lanes = v.lanes(spec, 2)
+    assert lanes[8:] == ([(96 * 64, 3072)] * 8 + [(140 * 64, 4608)] * 8
+                         + [(58 * 64, 1920)] * 8 + [(140 * 64, 3072)] * 8)
