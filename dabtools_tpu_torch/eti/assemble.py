@@ -13,13 +13,11 @@ Field packing notes [K-med — reconstructed from the standard; round-trip
 covered by tests, re-verify against reference captures when available]:
   FC: FCT(8) FICF(1) NST(7) FP(3) MID(2) FL(11), FL in 32-bit words over
   STC+EOH+MST.  STC entry: SubChId(6) SAD(10) TPL(6) STL(10), SAD/STL in
-  64-bit words.  TPL: 0b0iiiii = UEP table index i; 0b1ooLL = EEP option
+  64-bit words.  TPL: 0b010LLL = UEP level L-1; 0b1ooLL = EEP option
   o (0=A,1=B) level L-1 (see ``tpl_for_subchannel``).
 """
 
 from __future__ import annotations
-
-import logging
 
 import numpy as np
 
@@ -27,25 +25,21 @@ from dabtools_tpu_torch import constants as C
 from dabtools_tpu_torch.fic.config import Ensemble, Subchannel
 from dabtools_tpu_torch.utils.crc import crc16_ccitt
 
-log = logging.getLogger("dabtools_tpu.eti.assemble")
-
 
 def tpl_for_subchannel(s: Subchannel) -> int:
     """6-bit STC TPL field (ETS 300 799).
 
     The STC entry is 32 bits = SCID(6) SAD(10) TPL(6) STL(10) — the
     field widths are forced by the value ranges (SAD/STL address up to
-    864 CUs).  The TPL bit meaning is reconstructed [K-med,
+    864 CUs).  The TPL bit meaning is reconstructed [K-low,
     docs/INTEROP.md row 8]: EEP long form 0b1 + option(3) + level-1(2);
-    UEP 0b0 + table index(5) — UEP rows >= 32 cannot be represented and
-    are clamped (display/interop field only; decode config comes from
-    the FIC, so the stream itself is unaffected)."""
+    UEP 0b010 + level-1(3), i.e. ``0x10 | (level - 1)``, which
+    every Table 31 row has (its index, 7 bits with the short form's
+    table switch, does not fit the field).  Display/interop field only:
+    decode config comes from the FIC, so the stream itself is
+    unaffected."""
     if s.protection_type == "UEP":
-        if s.uep_table_index > 0x1F:
-            log.warning("UEP table index %d does not fit the 5-bit TPL "
-                        "field; clamping (docs/INTEROP.md row 8)",
-                        s.uep_table_index)
-        return min(s.uep_table_index, 0x1F)
+        return 0x10 | (s.protection_level - 1)
     option = 0 if s.eep_option == "A" else 1
     return 0x20 | (option << 2) | (s.protection_level - 1)
 

@@ -12,9 +12,12 @@ against the JAX receiver (CPU).
 - UEP (``tests/test_uep_mechanism.py``): a synthetic 32 kbit/s P3
   profile registered in both packages' tables (each package has its
   own), then the closed loops of that file, ETI identical to the JAX
-  receiver's; then a mux that signals the non-bundled 192 kbit/s P2 row,
-  through the port alone (the JAX receiver peaks at ~52 GB RSS there),
-  held to that test's outcome (marked ``slow``: see the test).
+  receiver's but for the UEP entry's STC TPL, which the port writes as
+  ``0x10 | (level - 1)`` and the JAX package as the Table 31 index
+  clamped to 31, and the header CRC over it; then a mux that signals
+  the non-bundled 192 kbit/s P2 row, through the port alone (the JAX
+  receiver peaks at ~52 GB RSS there), held to that test's outcome
+  (marked ``slow``: see the test).
 """
 
 import jax.numpy as jnp
@@ -33,6 +36,7 @@ from dabtools_tpu_torch.models import receiver as trx
 from dabtools_tpu_torch.ops.fec import init_deinterleave_ring
 from dabtools_tpu_torch.tables import puncturing as TP
 from tests.test_closed_loop import build_ensemble, modulate
+from tests.test_torch_host_copies import as_port_tpl
 from tests.test_torch_receiver import _port
 from tests.test_torch_robustness import _both
 
@@ -152,7 +156,10 @@ def test_uep_subchannel_closed_loop_matches_jax(synthetic_uep_profile):
                    subchannels=(Subchannel.uep(7, 0, table_index=2),))
     x, payload_bytes = modulate(ens, 14, seed=42)
     jr, je, tr, te = _both(x)
-    assert tuple(te) == tuple(je)
+    # one STC entry: its TPL byte is 10, the header CRC 14-15
+    assert {f[10] >> 2 for f in te} == {0x12}      # UEP level 3
+    assert {f[10] >> 2 for f in je} == {2}         # Table 31 index 2
+    assert tuple(te) == tuple(as_port_tpl(f, {7: 3}) for f in je)
     got = tr.ensemble.subchannels[0]
     assert (got.protection_type, got.uep_table_index) == ("UEP", 2)
     assert got.profile.mask().tobytes() == \
@@ -169,7 +176,9 @@ def test_bundled_uep_row_closed_loop_matches_jax(synthetic_uep_profile):
                    subchannels=(Subchannel.uep(3, 0, table_index=35),))
     x, payload_bytes = modulate(ens, 14, seed=5, payload_subchids=(3,))
     jr, je, tr, te = _both(x)
-    assert tuple(te) == tuple(je)
+    assert {f[10] >> 2 for f in te} == {0x12}      # UEP level 3
+    assert {f[10] >> 2 for f in je} == {0x1F}      # index 35 clamped
+    assert tuple(te) == tuple(as_port_tpl(f, {3: 3}) for f in je)
     _assert_payloads(tr, te, payload_bytes, (3,))
 
 

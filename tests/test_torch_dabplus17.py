@@ -9,9 +9,11 @@ profiles, options A and B, over all 864 CUs.
   held against the benchmark's plain reference (``rxbench/reference``),
   clean and under the control fault;
 * the same u8 through the JAX receiver and the port: the same ETI;
-* the ragged Viterbi lanes of one 8-frame block, for this multiplex
-  and the flagship, against lanes and trellis steps counted from the bit
-  rates alone, and the batch-by-batch decode of an odd-length mix;
+* the ragged Viterbi lanes of one 8-frame block, for this multiplex,
+  the flagship and the mixed MP2 + DAB+ ``mixed11`` (UEP lanes count as
+  EEP ones: kbit/s x 24 data bits and the tail), against lanes and
+  trellis steps counted from the bit rates alone, and the batch-by-batch
+  decode of an odd-length mix;
 * the demod chain's per-sub-channel and per-job spans.
 
 Blocks are 4 frames (8 where the lanes are pinned) and the pool is
@@ -55,7 +57,8 @@ FIC_DATA_BITS = 768
 TAIL = 6                    # the K = 7 code's zero tail
 # (lanes, live steps, padded steps) of one 8-frame block
 PER_BLOCK = {"flagship": (320, 911_232, 984_960),
-             "dabplus17": (576, 888_192, 1_772_928)}
+             "dabplus17": (576, 888_192, 1_772_928),
+             "mixed11": (384, 917_760, 1_771_776)}
 
 
 def _config(name: str) -> dict:
@@ -202,25 +205,32 @@ def test_ragged_counters_in_the_batch_by_batch_fallback():
         torch.testing.assert_close(metric, want_metric, rtol=0, atol=0)
 
 
+def demod_span_names(name: str) -> list[str]:
+    """The spans of one op-by-op 4-frame block of the configuration
+    ``name`` with spans on, after one with spans off that records
+    nothing; every ``demod.*`` span inside its ``enqueue.demod``."""
+    spans.drain()
+    _block(name, 4)
+    assert spans.drain() == []
+    spans.enable()
+    try:
+        _block(name, 4)
+    finally:
+        spans.disable()
+    got = spans.drain()
+    for span, t0, t1, parent, nbytes in got:
+        if span.startswith("demod."):
+            assert got[parent][0] == "enqueue.demod"
+            assert got[parent][1] <= t0 <= t1 <= got[parent][2]
+            assert nbytes == 0
+    return [s[0] for s in got]
+
+
 def test_demod_spans_per_subchannel_and_job():
     """With spans on, one block gives a ``demod.deinterleave`` span per
     sub-channel and a ``demod.depuncture`` span per Viterbi job (the FIC
     and the 9 profile groups), all under ``enqueue.demod``; with spans
     off it records nothing."""
-    spans.drain()
-    _block("dabplus17", 4)
-    assert spans.drain() == []
-    spans.enable()
-    try:
-        _block("dabplus17", 4)
-    finally:
-        spans.disable()
-    got = spans.drain()
-    names = [s[0] for s in got]
+    names = demod_span_names("dabplus17")
     assert names.count("demod.deinterleave") == 17
     assert names.count("demod.depuncture") == 10
-    for name, t0, t1, parent, nbytes in got:
-        if name.startswith("demod."):
-            assert got[parent][0] == "enqueue.demod"
-            assert got[parent][1] <= t0 <= t1 <= got[parent][2]
-            assert nbytes == 0

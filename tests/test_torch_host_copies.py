@@ -8,7 +8,11 @@ docstring names the directory its library builds in, which is the port's
 own ``native/`` (the code finds it relative to the module, unchanged);
 ``mod/impairments.py``'s ``u8_to_complex`` has its own body, one float32
 pass with no complex128 temporaries, held bit for bit against the
-original's below.
+original's below; ``eti/assemble.py``'s ``tpl_for_subchannel`` writes a
+UEP sub-channel's STC TPL as ``0x10 | (level - 1)``, not as its Table 31
+index clamped to 31 (``docs/INTEROP.md`` row 8), so the two packages'
+ETI differ in a UEP entry's TPL bits and in the header CRC over them
+(``as_port_tpl``).
 
 Each copy is held against its original as text, and the copies' behaviour
 against the originals' on one seed.
@@ -29,6 +33,7 @@ from dabtools_tpu.fic.fig import build_fibs_for_ensemble as jbuild_fibs
 from dabtools_tpu.mod.impairments import u8_to_complex as ju8_to_complex
 from dabtools_tpu.mod.modulator import Modulator as JModulator
 from dabtools_tpu.mod.modulator import SubchannelSource as JSource
+from dabtools_tpu.utils.crc import crc16_ccitt as jcrc16_ccitt
 from dabtools_tpu.utils.crc import crc16_ok_batch as jcrc16_ok_batch
 from dabtools_tpu_torch import constants as tC
 from dabtools_tpu_torch.eti.assemble import EtiAssembler
@@ -89,6 +94,35 @@ EXCEPTIONS = {
     f /= scale
     return f.view(np.complex64)
 """)],
+    # a UEP entry's STC TPL: its protection level, not its Table 31 index
+    "eti/assemble.py": [
+        ("TPL: 0b0iiiii = UEP table index i; 0b1ooLL",
+         "TPL: 0b010LLL = UEP level L-1; 0b1ooLL"),
+        ("import logging\n\n", ""),
+        ('\nlog = logging.getLogger("dabtools_tpu.eti.assemble")\n', ""),
+        ('''\
+    864 CUs).  The TPL bit meaning is reconstructed [K-med,
+    docs/INTEROP.md row 8]: EEP long form 0b1 + option(3) + level-1(2);
+    UEP 0b0 + table index(5) — UEP rows >= 32 cannot be represented and
+    are clamped (display/interop field only; decode config comes from
+    the FIC, so the stream itself is unaffected)."""
+    if s.protection_type == "UEP":
+        if s.uep_table_index > 0x1F:
+            log.warning("UEP table index %d does not fit the 5-bit TPL "
+                        "field; clamping (docs/INTEROP.md row 8)",
+                        s.uep_table_index)
+        return min(s.uep_table_index, 0x1F)
+''', '''\
+    864 CUs).  The TPL bit meaning is reconstructed [K-low,
+    docs/INTEROP.md row 8]: EEP long form 0b1 + option(3) + level-1(2);
+    UEP 0b010 + level-1(3), i.e. ``0x10 | (level - 1)``, which
+    every Table 31 row has (its index, 7 bits with the short form's
+    table switch, does not fit the field).  Display/interop field only:
+    decode config comes from the FIC, so the stream itself is
+    unaffected."""
+    if s.protection_type == "UEP":
+        return 0x10 | (s.protection_level - 1)
+''')],
     "cli/etiremux.py": [(_JAX_PIN.format(why="host byte work only"), "")],
     "cli/eti2iq.py": [(_JAX_PIN.format(why="host byte/NumPy work"), "")],
     "cli/eti2audio.py": [("""\
@@ -250,6 +284,23 @@ def test_u8_to_complex_refuses_odd_lengths(n):
         u8_to_complex(np.full(n, 128, np.uint8))
 
 
+def as_port_tpl(frame: bytes, levels: dict[int, int]) -> bytes:
+    """The JAX package's ETI frame ``frame`` as the port writes it: the STC
+    TPL of each UEP sub-channel in ``levels`` (SubChId -> protection level)
+    set to ``0x10 | (level - 1)`` and the header CRC over FC, STC and MNSC
+    computed again; every other byte as it was."""
+    f = bytearray(frame)
+    nst = f[5] & 0x7F
+    for k in range(nst):
+        entry = 8 + 4 * k           # SCID(6) SAD(10) TPL(6) STL(10)
+        if f[entry] >> 2 in levels:
+            tpl = 0x10 | (levels[f[entry] >> 2] - 1)
+            f[entry + 2] = tpl << 2 | (f[entry + 2] & 0x03)
+    crc = 8 + 4 * nst + 2           # after MNSC
+    f[crc:crc + 2] = jcrc16_ccitt(bytes(f[4:crc])).to_bytes(2, "big")
+    return bytes(f)
+
+
 def _ensembles():
     """The same two-sub-channel ensemble in each package's classes."""
     def build(cfg):
@@ -312,7 +363,12 @@ def test_eti_assembly_and_crc_match():
         fibs, subch, errs)
     got = EtiAssembler(tens, tC.MODE_I, tist_start=0.25).frame_batch(
         fibs, subch, errs)
-    assert got == ref and len(got) == n
+    # the UEP sub-channel 9 (32 kbit/s P3, Table 31 index 2) is the
+    # second STC entry: TPL 0x12 in the port, its index 2 in the JAX
+    # package, and the header CRC after two entries differs with it
+    assert [f[14] >> 2 for f in got] == [0x12] * n
+    assert [f[14] >> 2 for f in ref] == [2] * n
+    assert got == [as_port_tpl(f, {9: 3}) for f in ref] and len(got) == n
     blocks = rng.integers(0, 256, size=(64, 32), dtype=np.uint8)
     blocks[::3] = np.frombuffer(jbuild_fibs(jens, 0)[0].tobytes(),
                                 np.uint8)

@@ -8,7 +8,9 @@ and mixed mux with the JAX package (CPU).
   and ``SuperframeDecoder`` (``tests/test_dabplus.py``'s cases): builder
   bytes, decoded AUs and decoder stats must be identical.
 * The mixed mux (6 x EEP, UEP, DAB+) through both ``DabReceiver``s: ETI
-  bytes identical.
+  bytes identical but for the UEP entry's STC TPL (the port writes
+  ``0x10 | (level - 1)``, the JAX package the Table 31 index) and the
+  header CRC over it.
 """
 
 import dataclasses
@@ -29,6 +31,7 @@ from dabtools_tpu_torch.eti import dabplus as tdp
 from dabtools_tpu_torch.eti.parse import EtiParser
 from dabtools_tpu_torch.models.receiver import DabReceiver
 from dabtools_tpu_torch.ops.rs import make_rs_decoder, rs_decode_batch
+from tests.test_torch_host_copies import as_port_tpl
 
 torch.set_num_threads(2)
 
@@ -218,8 +221,9 @@ def test_superframe_loses_and_regains_sync_like_jax():
 def test_mixed_mux_eti_matches_jax():
     """The mixed mux (6 x EEP 3-A, UEP idx 16, DAB+ 72 kbit/s of real
     superframes), 12 frames in 8-frame blocks: identical ETI bytes from
-    both receivers, every payload the modulator's, the DAB+ sub-channel
-    back to its access units."""
+    both receivers but for the UEP entry's TPL and the header CRC, every
+    payload the modulator's, the DAB+ sub-channel back to its access
+    units."""
     mix = S.mixed_ensemble()
     rng = np.random.default_rng(1)
     rows, aus = S.dabplus_superframes(12 * 4, rng)
@@ -228,7 +232,10 @@ def test_mixed_mux_eti_matches_jax():
     jeti = JDabReceiver(n_frames=8, ensemble=jconfig.Ensemble.from_dict(
         mix.to_dict())).feed(x)
     assert len(eti) == 17
-    assert eti == jeti
+    # the UEP sub-channel 6 is the seventh STC entry (TPL byte 34)
+    assert {f[34] >> 2 for f in eti} == {0x12}     # UEP level 3
+    assert {f[34] >> 2 for f in jeti} == {16}      # Table 31 index 16
+    assert eti == [as_port_tpl(f, {6: 3}) for f in jeti]
     assert S.check_eti_payloads(eti, payload, 0) == 17
     frames = list(EtiParser().feed(b"".join(eti)))
     assert S.check_dabplus([f.subchannel_data(S.MIXED_DABPLUS)
