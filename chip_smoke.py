@@ -53,7 +53,9 @@ of which raises on failure:
    pass the sync-free check, and phase 4's stream (no TII) must give
    None.
 6. resampler: the flagship at 2.4 Msps (exact spectral resample) through
-   ``Resampler(2_400_000)`` and the receiver: ETI payloads must be the
+   ``Resampler(2_400_000)`` and the receiver, which takes the
+   resampler's output on the card (``input_counts``: every block from
+   the card): ETI payloads must be the
    modulator's; the resampler's input Msamples/s; one launch of its
    kernel (``csrc/resample.cu``) per call; the kernel against
    ``resample_plain`` at an 8-frame block (1,843,200 inputs, 1,572,864
@@ -893,35 +895,44 @@ def resampler_phase(rng, card: str) -> None:
     launches = cudalib.launches["dab_resample"]
     t0 = time.perf_counter()
     y = rs(x24)
+    torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = cudalib.launches["dab_resample"] - launches
     if launches != 1:
         raise AssertionError(f"resampler: {launches} kernel launches in "
                              f"one call")
-    print(f"resampler: {x24.size} samples at 2.4 Msps -> {y.size} in "
+    if not (y.is_cuda and y.dtype == torch.complex64):
+        raise AssertionError(f"resampler returned {y.dtype} on {y.device}")
+    print(f"resampler: {x24.size} samples at 2.4 Msps -> {y.numel()} in "
           f"{dt * 1e3:.1f} ms = {x24.size / dt / 1e6:.1f} input Msamples/s "
-          f"(host clock, upload and download included) on {card}")
+          f"(host clock, upload and kernel included; the output stays on "
+          f"the card) on {card}")
     _resample_kernel_time(rs)
     rx = DabReceiver(n_frames=BLOCK_FRAMES, device="cuda")
     eti = rx.feed(y)
     if rx.ensemble is None:
         raise AssertionError("resampled stream: no ensemble acquired")
+    if rx.input_counts != {"host": 0, "card": rx.device_steps}:
+        raise AssertionError(f"resampled stream: input counts "
+                             f"{rx.input_counts}, {rx.device_steps} steps")
     raw = b"".join(eti)
     n = S.check_eti_payloads(eti, payload, S.first_payload_cif(raw, payload))
     print(f"resampled stream: {n} ETI frames, all 9 payloads "
           f"byte-identical to the modulator's")
 
 
-def _channelizer_rate(x: np.ndarray, method: str) -> tuple[np.ndarray, float]:
+def _channelizer_rate(x: np.ndarray,
+                      method: str) -> tuple[torch.Tensor, float]:
     """One call of a fresh channelizer of the capture's 4 blocks on the
-    whole capture (after a warm-up instance): (output, input Msamples/s,
-    host clock, upload and download included)."""
+    whole capture (after a warm-up instance): (output on the card, input
+    Msamples/s, host clock, upload and kernels included)."""
     offs = [f - WB_CENTER for f in (BAND[b] for b in ("6A", "6B", "6C",
                                                       "6D"))]
     Channelizer(WB_RATE, offs, method=method, device="cuda")(x[:1 << 20])
     ch = Channelizer(WB_RATE, offs, method=method, device="cuda")
     t0 = time.perf_counter()
     y = ch(x)
+    torch.cuda.synchronize()
     return y, x.size / (time.perf_counter() - t0) / 1e6
 
 
@@ -945,11 +956,11 @@ def wideband_phase(rng, card: str) -> None:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     n = min(yd.shape[1], yf.shape[1])
-    err = float(np.abs(yf[:, :n] - yd[:, :n]).max())
+    err = float((yf[:, :n] - yd[:, :n]).abs().max())
     print(f"channelizer, TF32 on process-wide: fft vs direct max |diff| "
           f"{err:.3g} (limit 2e-05); input Msamples/s: fft {rate_f:.1f}, "
           f"direct {rate_d:.1f} (host clock, one call on the whole capture, "
-          f"upload and download included) on {card}")
+          f"upload and kernels included) on {card}")
     if not err <= 2e-5:
         raise AssertionError("channelizer fft and direct disagree")
 

@@ -130,7 +130,7 @@ def _wideband(args, mode, n_frames) -> int:
         for chunk in iter_samples(args.input, args.format):
             if chunk.dtype == np.uint8:
                 chunk = u8_to_complex(chunk)
-            y = ch(chunk)
+            y = ch(chunk)               # (K, n) on the device
             for i, (name, _) in enumerate(cands):
                 for frame in rxs[name].feed(y[i]):
                     if args.edi:
@@ -306,8 +306,8 @@ def main(argv=None) -> int:
             if resampler is not None:
                 if chunk.dtype == np.uint8:   # resampler works on cf32
                     chunk = u8_to_complex(chunk)
-                chunk = resampler(chunk)
-                if chunk.size == 0:
+                chunk = resampler(chunk)    # a tensor on the device
+                if chunk.numel() == 0:
                     continue
             for frame in rx.feed(chunk):
                 if edi is not None:

@@ -94,9 +94,11 @@ def main(argv=None) -> int:
         print(f"capture too short: need {need} samples per block after "
               f"channelization, have {streams.shape[1]}", file=sys.stderr)
         return 1
+    # the channelizer's rows are on the device already; one copy there
+    # hands the chain a contiguous batch, as its other callers do
     out, _, _ = channel_parallel_block(
-        torch.from_numpy(np.ascontiguousarray(streams[:, :need])).to(dev),
-        {}, torch.tensor(0, dtype=torch.int32, device=dev),
+        streams[:, :need].contiguous(), {},
+        torch.tensor(0, dtype=torch.int32, device=dev),
         ensemble=None, n_frames=n_frames)
     out = to_host(out)
     fib_bytes_all = out["fib_bytes"]                # (C, B, 12, 32)

@@ -59,6 +59,11 @@ from dabtools_tpu_torch.utils.crc import crc16_ok_batch
 log = logging.getLogger("dabtools_tpu_torch.receiver")
 
 
+def _length(chunk) -> int:
+    """Elements of a buffered input chunk, NumPy array or tensor."""
+    return chunk.numel() if torch.is_tensor(chunk) else chunk.size
+
+
 def block_samples(n_frames: int, mode=C.MODE_I, margin: int = 4096) -> int:
     """Samples the device block function expects per call: ``n_frames``
     frames + one frame of coarse-sync slack + fine-sync margins."""
@@ -411,10 +416,12 @@ def from_jax_state(ckpt: dict, device) -> dict:
 class DabReceiver:
     """Streaming IQ -> ETI receiver with FIC acquisition (host orchestrator).
 
-    Feed complex64 or u8 baseband at 2.048 Msps via :meth:`feed`; collect
-    ETI frames from the returned list.  The first blocks run FIC-only until
-    the MCI is parsed; then the pipeline specializes to the ensemble and
-    starts emitting ETI once the 16-CIF deinterleaver is primed.
+    Feed complex64 or u8 baseband at 2.048 Msps via :meth:`feed`, as NumPy
+    arrays or, from a front end, as complex64 tensors on ``device``;
+    collect ETI frames from the returned list.  The first blocks run
+    FIC-only until the MCI is parsed; then the pipeline specializes to the
+    ensemble and starts emitting ETI once the 16-CIF deinterleaver is
+    primed.
 
     ``device``: where every block runs, end to end.  Required; the
     receiver never picks or changes it.
@@ -442,9 +449,14 @@ class DabReceiver:
         self._tii_powers = np.zeros((24, 8), dtype=np.float64)
         self._tii_floor = 0.0
         self.emit_eti = emit_eti
-        # Input ring: caller-provided chunks consumed by view slicing.
-        self._chunks: list[np.ndarray] = []
+        # Input ring: caller-provided chunks consumed by view slicing,
+        # NumPy arrays (uploaded a block at a time) or tensors on the
+        # device (kept there).
+        self._chunks: list = []
         self._buffered = 0
+        # Blocks uploaded from a NumPy ring ("host") and blocks taken
+        # from a tensor ring ("card"), replays included.
+        self.input_counts = {"host": 0, "card": 0}
         self._fig = FigParser()
         self.ensemble = ensemble
         self._decode: Ensemble | None = None   # ensemble minus undecodables
@@ -503,25 +515,34 @@ class DabReceiver:
     # ------------------------------------------------------------- feed
     PREROLL = 4096  # samples kept before the next frame's null symbol
 
-    def feed(self, samples: np.ndarray) -> list[bytes]:
+    def feed(self, samples) -> list[bytes]:
         """Consume samples; return any completed ETI frames.
 
-        ``samples``: complex64, or raw uint8 offset-128 interleaved IQ
-        (converted on the device).  Do not mix formats on one receiver.
-        Span ``rx.feed``, the root of the call's spans.
+        ``samples``: a NumPy array, complex64 or raw uint8 offset-128
+        interleaved IQ (converted on the device), each block uploaded; or
+        an (n,) complex64 tensor on the receiver's device (a front end's
+        output), each block taken there.  Do not mix formats, nor arrays
+        and tensors, on one receiver.  Span ``rx.feed``, the root of the
+        call's spans.
         """
         with spans.span("rx.feed"):
-            s = np.asarray(samples)
-            if s.dtype == np.uint8:
-                eps = 2                # buffer elements per sample
+            if torch.is_tensor(samples):
+                s, eps = self._device_chunk(samples), 1
             else:
-                s = np.asarray(s, dtype=np.complex64)
-                eps = 1
+                s = np.asarray(samples)
+                if s.dtype == np.uint8:
+                    eps = 2            # buffer elements per sample
+                else:
+                    s = np.asarray(s, dtype=np.complex64)
+                    eps = 1
+            if self._chunks and (torch.is_tensor(self._chunks[0])
+                                 != torch.is_tensor(s)):
+                raise ValueError("cannot mix NumPy and tensor feeds")
             if self._chunks and self._chunks[0].dtype != s.dtype:
                 raise ValueError("cannot mix u8 and complex64 feeds")
-            if s.size:
+            if _length(s):
                 self._chunks.append(s)
-                self._buffered += s.size
+                self._buffered += _length(s)
             eti: list[bytes] = []
             need = block_samples(self.n_frames, self.mode) * eps
             while self._buffered >= need:
@@ -537,16 +558,44 @@ class DabReceiver:
             return eti
 
     def pending_samples(self) -> np.ndarray:
-        """Buffered-but-unprocessed samples (e.g. to carry across a
-        checkpoint/restore: feed them to the restored receiver first)."""
+        """Buffered-but-unprocessed samples, as NumPy whatever was fed
+        (e.g. to carry across a checkpoint/restore: feed them to the
+        restored receiver first)."""
         if not self._chunks:
             return np.zeros(0, dtype=np.complex64)
-        return self._peek(self._buffered).copy()
+        out = self._peek(self._buffered)
+        if torch.is_tensor(out):
+            return out.to("cpu", copy=True).numpy()
+        return out.copy()
 
-    def _peek(self, n: int) -> np.ndarray:
+    def _device_chunk(self, t: torch.Tensor) -> torch.Tensor:
+        """A tensor fed in, once checked: (n,) complex64 on this
+        receiver's device."""
+        dev = self.device
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if t.dtype != torch.complex64 or t.dim() != 1 or t.device != dev:
+            raise ValueError(f"a tensor feed must be (n,) complex64 on "
+                             f"{dev}; got {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}")
+        return t
+
+    def _peek(self, n: int):
         """First ``n`` buffered samples (zero-copy when one chunk covers
-        them; otherwise one block-sized gather, span ``rx.ring``)."""
+        them; otherwise one block-sized gather, span ``rx.ring``: into a
+        fresh host array, or one ``torch.cat`` on the device)."""
         first = self._chunks[0]
+        if torch.is_tensor(first):
+            if first.shape[0] >= n:
+                return first[:n]
+            with spans.span("rx.ring"):
+                parts, pos = [], 0
+                for c in self._chunks:
+                    parts.append(c[:n - pos])
+                    pos += parts[-1].shape[0]
+                    if pos == n:
+                        break
+                return torch.cat(parts)
         if first.size >= n:
             return first[:n]
         with spans.span("rx.ring"):
@@ -565,8 +614,8 @@ class DabReceiver:
         self._buffered -= n
         while n:
             c = self._chunks[0]
-            if c.size <= n:
-                n -= c.size
+            if _length(c) <= n:
+                n -= _length(c)
                 self._chunks.pop(0)
             else:
                 self._chunks[0] = c[n:]
@@ -710,14 +759,20 @@ class DabReceiver:
             self._probe_subs = ()
         return identified
 
-    def _upload(self, x: np.ndarray) -> torch.Tensor:
+    def _upload(self, x) -> torch.Tensor:
+        """The block on the device: a tensor as it is, an array uploaded
+        (span ``rx.h2d``).  Counted in ``input_counts``."""
+        if torch.is_tensor(x):
+            self.input_counts["card"] += 1
+            return x
+        self.input_counts["host"] += 1
         if not x.flags.writeable:
             with spans.span("rx.ring"):
                 x = x.copy()
         with spans.span("rx.h2d", x.nbytes):
             return torch.from_numpy(x).to(self.device)
 
-    def _process_one_block(self, x: np.ndarray,
+    def _process_one_block(self, x,
                            _replay: str | None = None) -> list[bytes]:
         """``_replay``: this is the second pass over the SAME block, and
         its cause (``"acquire"``, ``"reconfig"`` or ``"autoprobe"``
@@ -728,7 +783,7 @@ class DabReceiver:
         with spans.span(f"rx.block.{_replay}" if _replay else "rx.block"):
             return self._block(x, _replay)
 
-    def _block(self, x: np.ndarray, _replay: str | None) -> list[bytes]:
+    def _block(self, x, _replay: str | None) -> list[bytes]:
         cif0 = self._cif_host
         # Pre-block deinterleaver state, kept for the autoprobe replay.
         pre_rings = dict(self._rings) if self._rings else {}
@@ -738,7 +793,9 @@ class DabReceiver:
         # caching allocator then hands its memory to the next upload (a
         # replay's included), and the device's memory layout, which the
         # kernels' times depend on, stays as it is without spans; a graph
-        # replay copies it into its static input
+        # replay copies it into its static input.  A tensor fed in passes
+        # through: no operation of the chain writes into its input, so a
+        # replay reads the same samples again
         out_dev, rings, cif_next = process_block(
             self._upload(x), self._rings or {}, self._cif_count,
             ensemble=ens, mode=self.mode, n_frames=self.n_frames,

@@ -14,12 +14,13 @@ the JAX module's; the device side is torch on the channelizer's device:
   float32 convolution's inputs to TF32 by default, which would cost the
   filter three decimal digits.
 
-``__call__`` takes and returns NumPy arrays: (n,) complex64 wideband
-samples in, (K, n_out) complex64 baseband out, one upload (two for
-``fft``: the samples and the mixer phases) and one download per call.
-Spans (``utils/spans.py``): ``frontend`` around the call, and inside it
-``frontend.h2d``, ``frontend.enqueue``, ``frontend.wait`` and
-``frontend.d2h``; the rest of ``frontend`` is the host's own work.
+``__call__`` takes a NumPy array, (n,) complex64 wideband samples, and
+returns a tensor on the channelizer's device, (K, n_out) complex64
+baseband: one upload (two for ``fft``: the samples and the mixer
+phases) and no download, since the receivers take the rows on the
+device.  Spans (``utils/spans.py``): ``frontend`` around the call, and
+inside it ``frontend.h2d`` and ``frontend.enqueue``; the rest of
+``frontend`` is the host's own work.
 """
 
 from __future__ import annotations
@@ -139,8 +140,9 @@ class Channelizer:
         with spans.span("frontend.h2d", a.nbytes):
             return torch.from_numpy(a).to(self.device)
 
-    def __call__(self, x: np.ndarray) -> np.ndarray:
-        """Feed wideband samples; returns (K, n_out) baseband complex64.
+    def __call__(self, x: np.ndarray) -> torch.Tensor:
+        """Feed wideband samples; returns (K, n_out) baseband complex64
+        on the channelizer's device, launched but not waited for.
 
         Streaming: keeps the (taps-1)-sample tail and absolute phase so
         consecutive calls are seamless.
@@ -148,7 +150,11 @@ class Channelizer:
         with spans.span("frontend"):
             return self._call(x)
 
-    def _call(self, x: np.ndarray) -> np.ndarray:
+    def _empty(self) -> torch.Tensor:
+        return torch.zeros((len(self.offsets_hz), 0), dtype=torch.complex64,
+                           device=self.device)
+
+    def _call(self, x: np.ndarray) -> torch.Tensor:
         x = np.asarray(x, dtype=np.complex64)
         if self._tail is not None:
             x = np.concatenate([self._tail, x])
@@ -163,15 +169,14 @@ class Channelizer:
         self._tail = x[used:].copy()
         self._consumed = start + used + self._tail.size
         if n_out == 0:
-            return np.zeros((len(self.offsets_hz), 0), dtype=np.complex64)
+            return self._empty()
         phases = tuple(int((start) % m.size) for m in self._mixers)
         x_dev = self._upload(x[: used + self.num_taps - 1])
         with spans.span("frontend.enqueue"):
-            y = _channelize(x_dev, self._filt_dev, self._mixers_dev, phases,
-                            self.decim)
-        return spans.download(y, "frontend.wait", "frontend.d2h")
+            return _channelize(x_dev, self._filt_dev, self._mixers_dev,
+                               phases, self.decim)
 
-    def _call_fft(self, x: np.ndarray, start: int) -> np.ndarray:
+    def _call_fft(self, x: np.ndarray, start: int) -> torch.Tensor:
         n, hop = self.N_FFT, self.hop
         n_chunks = max(0, (x.size - n) // hop + 1)
         n_out = n_chunks * (hop // self.decim)
@@ -179,7 +184,7 @@ class Channelizer:
         self._tail = x[used:].copy()
         self._consumed = start + used + self._tail.size
         if n_chunks == 0:
-            return np.zeros((len(self.offsets_hz), 0), dtype=np.complex64)
+            return self._empty()
         # Per-(offset, chunk) global mixer phase at the chunk start,
         # computed with exact integer arithmetic (no float accumulation).
         phases = np.empty((len(self.offsets_hz), n_chunks),
@@ -192,10 +197,9 @@ class Channelizer:
         x_dev = self._upload(x[: (n_chunks - 1) * hop + n])
         phases_dev = self._upload(phases)
         with spans.span("frontend.enqueue"):
-            y = _channelize_fft(x_dev, self._hspec_dev, phases_dev,
-                                self._roll_dev, n_fft=n, hop=hop,
-                                decim=self.decim)
-        return spans.download(y, "frontend.wait", "frontend.d2h")
+            return _channelize_fft(x_dev, self._hspec_dev, phases_dev,
+                                   self._roll_dev, n_fft=n, hop=hop,
+                                   decim=self.decim)
 
 
 def _channelize_fft(x, hspec, phases, roll, *, n_fft, hop, decim):

@@ -17,10 +17,11 @@ tap row.  Streaming keeps the last ``taps_per_phase - 1`` inputs and the
 global output index, so chunk boundaries are seamless: the host keeps
 the tail as NumPy, the device as the end of the last upload, which the
 kernel reads through a second pointer (the samples are never
-concatenated on the host).  Spans (``utils/spans.py``) as the
+concatenated on the host).  The output stays on the device: the
+receiver takes it there.  Spans (``utils/spans.py``) as the
 channelizer's: ``frontend`` around the call, ``frontend.h2d`` (the new
-samples; the tail too after a call that left it on the host alone),
-``frontend.enqueue``, ``frontend.wait`` and ``frontend.d2h`` inside it.
+samples; the tail too after a call that left it on the host alone) and
+``frontend.enqueue`` inside it.
 """
 
 from __future__ import annotations
@@ -110,7 +111,9 @@ class Resampler:
     """Convert complex IQ from ``fs_in`` to ``fs_out`` (default DAB rate).
 
     ``device``: where the filtering runs.  Required; the resampler never
-    picks it.  ``__call__`` takes and returns NumPy complex64 arrays.
+    picks it.  ``__call__`` takes a NumPy complex64 array and returns an
+    (n_out,) complex64 tensor on the device, launched but not waited
+    for.
     """
 
     def __init__(self, fs_in: int, fs_out: int = SAMPLE_RATE,
@@ -160,11 +163,11 @@ class Resampler:
         # (the first call's base is -(t-1))
         return n1, r0, q0 - base - (t - 1)
 
-    def __call__(self, samples: np.ndarray) -> np.ndarray:
+    def __call__(self, samples: np.ndarray) -> torch.Tensor:
         with spans.span("frontend"):
             return self._call(samples)
 
-    def _call(self, samples: np.ndarray) -> np.ndarray:
+    def _call(self, samples: np.ndarray) -> torch.Tensor:
         x = np.asarray(samples, dtype=np.complex64)
         if not x.flags.writeable:
             x = x.copy()
@@ -177,7 +180,7 @@ class Resampler:
                 self._tail_dev = None
             self._tail = tail
             self._consumed += x.size
-            return np.zeros(0, dtype=np.complex64)
+            return torch.zeros(0, dtype=torch.complex64, device=self.device)
         if s0 < 0:
             raise AssertionError("resampler window before buffer start")
         up_tail = self._tail_dev is None
@@ -191,7 +194,6 @@ class Resampler:
             fn = resample_cuda if x_dev.is_cuda else resample_plain
             y = fn(self._tail_dev, x_dev, self._bank_dev, r0, s0,
                    n1 - n0 + 1, self.down)
-        y = spans.download(y, "frontend.wait", "frontend.d2h")
         self._next_out = n1 + 1
         self._tail = tail
         self._tail_dev = x_dev[-keep:] if x.size >= keep else None

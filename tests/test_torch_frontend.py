@@ -171,13 +171,13 @@ def test_resampler_matches_jax_oneshot_and_streaming():
     one = tres.Resampler(2_400_000, device="cpu")
     assert (one.up, one.down) == (64, 75)
     np.testing.assert_array_equal(one.bank, jres.Resampler(2_400_000).bank)
-    np.testing.assert_allclose(one(x), ref, atol=1e-5)
+    np.testing.assert_allclose(one(x).cpu().numpy(), ref, atol=1e-5)
     # the JAX test's uneven chunks, one call at a time in both packages
     jr, tr = jres.Resampler(2_400_000), tres.Resampler(2_400_000,
                                                        device="cpu")
     for a, b in ((0, 50_000), (50_000, 50_137), (50_137, 200_000),
                  (200_000, 300_000)):
-        want, got = jr(x[a:b]), tr(x[a:b])
+        want, got = jr(x[a:b]), tr(x[a:b]).cpu().numpy()
         assert got.shape == want.shape and got.dtype == np.complex64
         np.testing.assert_allclose(got, want, atol=1e-5)
         assert (tr._next_out, tr._consumed, tr._tail.size) == (
@@ -231,7 +231,7 @@ def test_resampler_matches_jax_past_2_32(rate):
     _past_2_32(jr, tr)
     sizes = []
     for a, b in RESAMPLER_CHUNKS:
-        want, got = jr(x[a:b]), tr(x[a:b])
+        want, got = jr(x[a:b]), tr(x[a:b]).cpu().numpy()
         assert got.shape == want.shape and got.dtype == np.complex64
         np.testing.assert_allclose(got, want, atol=1e-5)
         assert (tr._next_out, tr._consumed, tr._tail.size) == (
@@ -272,7 +272,7 @@ def test_channelizer_matches_jax(method):
     ref = jfir.Channelizer(fs, offs, method=method)(x)
     ch = tfir.Channelizer(fs, offs, method=method, device="cpu")
     assert ch.method == method and ch.num_taps == 233
-    got = ch(x)
+    got = ch(x).cpu().numpy()
     assert got.shape == ref.shape and got.dtype == np.complex64
     np.testing.assert_allclose(got, ref, atol=1e-4)
     # across streaming calls, in the JAX test's uneven chunks
@@ -280,7 +280,7 @@ def test_channelizer_matches_jax(method):
     tc = tfir.Channelizer(fs, offs, method=method, device="cpu")
     for a, b in ((0, 100_000), (100_000, 100_128), (100_128, 500_000),
                  (500_000, x.size)):
-        want, got = jc(x[a:b]), tc(x[a:b])
+        want, got = jc(x[a:b]), tc(x[a:b]).cpu().numpy()
         assert got.shape == want.shape
         np.testing.assert_allclose(got, want, atol=1e-4)
         assert (tc._consumed, tc._tail.size) == (jc._consumed,

@@ -168,23 +168,24 @@ def test_channelizer_copy_spans(method):
     else:
         used = ((n - ch.num_taps) // ch.decim + 1) * ch.decim
         up = [(used + ch.num_taps - 1) * 8]
+    # the output stays on the device: no wait and no download
     assert names == ["frontend"] + ["frontend.h2d"] * len(up) + [
-        "frontend.enqueue", "frontend.wait", "frontend.d2h"]
+        "frontend.enqueue"]
     assert [s[4] for s in done if s[0] == "frontend.h2d"] == up
-    assert done[-1][4] == y.nbytes > 0
+    assert torch.is_tensor(y) and y.shape[0] == len(offs) and y.numel()
 
 
 def test_resampler_copy_spans():
     rs = Resampler(2_400_000, device="cpu")
     n = 120_000
     y, done = _front_spans(rs, _unit_noise(n, 4))
+    # the output stays on the device: no wait and no download
     assert [s[0] for s in done] == ["frontend", "frontend.h2d",
-                                    "frontend.enqueue", "frontend.wait",
-                                    "frontend.d2h"]
+                                    "frontend.enqueue"]
     # one upload, the new samples alone: the tail stays on the device and
     # the window indices are formed there
     assert done[1][4] == n * 8
-    assert done[-1][4] == y.nbytes > 0
+    assert torch.is_tensor(y) and y.dim() == 1 and y.numel()
 
 
 def test_resampler_uploads_its_tail_only_when_the_device_lacks_it():
@@ -202,7 +203,7 @@ def test_resampler_uploads_its_tail_only_when_the_device_lacks_it():
         y, done = _front_spans(rs, x[a:b])
         h2d = [s[4] for s in done if s[0] == "frontend.h2d"]
         up.append(h2d)
-        assert h2d == ([(b - a + keep * stale) * 8] if y.size else [])
+        assert h2d == ([(b - a + keep * stale) * 8] if y.numel() else [])
     assert up[:4] == [[4000 * 8], [], [5 * 8], [(1995 + keep) * 8]]
     assert [] in up[4:]                    # a sample that completes nothing
 
