@@ -20,6 +20,12 @@ loop is seamless:
 The FIG 0/0 CIF count jumps back at the seam; the receiver numbers CIFs
 with its own counter.  The seed draws the payload bytes, the CFO and the
 timing offset of each ensemble, and the noise, in that order.
+
+A configuration is one SDR's input or several (:func:`stream_count`): a
+capture with a ``center_hz`` holds one ensemble per ``block`` and is one
+input; else each receiver is an SDR of its own at 2.048 Msps.  Each such
+stream gets its own ensemble, CFO, timing offset and noise, drawn in
+receiver order, and the pool one row of u8 per stream.
 """
 
 from __future__ import annotations
@@ -97,7 +103,8 @@ class Truth:
 class Pool:
     """The looped input: ``samples`` holds the loop's ``period`` bytes
     followed by enough of its start that every hand-over of ``handover``
-    bytes is one contiguous view."""
+    bytes is one contiguous view; one such row per stream where the
+    configuration has several."""
 
     samples: np.ndarray
     period: int
@@ -106,9 +113,27 @@ class Pool:
     truth: list
 
     def chunk(self, k: int) -> np.ndarray:
-        """Hand-over ``k`` of the endless stream (a view)."""
+        """Hand-over ``k`` of the endless stream (a view; (streams, n)
+        with one row per stream where there are several)."""
         pos = (k * self.handover) % self.period
-        return self.samples[pos: pos + self.handover]
+        return self.samples[..., pos: pos + self.handover]
+
+
+def stream_count(config: dict, traffic: dict) -> int:
+    """The SDR inputs of ``config``: one for a capture with a
+    ``center_hz`` or a configuration of one receiver, else one stream per
+    receiver.  Several streams run at 2.048 Msps, each with an ensemble:
+    anything else raises ``ValueError`` naming the configuration."""
+    receivers = config["receivers"]
+    if config.get("center_hz") is not None or len(receivers) == 1:
+        return 1
+    rate = int(traffic.get("rate_hz") or config["rate_hz"])
+    if rate != C.SAMPLE_RATE:
+        raise ValueError(f"{config['name']}: {len(receivers)} streams at "
+                         f"{rate} Hz; streams run at {C.SAMPLE_RATE} Hz")
+    if any(r.get("ensemble") is None for r in receivers):
+        raise ValueError(f"{config['name']}: a stream with no ensemble")
+    return len(receivers)
 
 
 def _looped(ens: Ensemble, pool_frames: int, rng):
@@ -148,12 +173,13 @@ def synthesize(config: dict, traffic: dict, seed: int) -> Pool:
     """The pool of ``config`` under ``traffic`` for ``seed``."""
     if config.get("mode", "I") != "I":
         raise ValueError("the generator modulates Mode I only")
+    stream_count(config, traffic)
     rng = np.random.default_rng(int(seed) % (1 << 63))
     p = int(traffic["pool_frames"])
     n = p * MODE.frame_size                 # baseband samples per loop
     rate = int(traffic.get("rate_hz") or config["rate_hz"])
     center = config.get("center_hz")
-    truth, wide, n_ens = [], None, 0
+    truth, rows, n_ens = [], [], 0
     if center is not None:                  # one spectrum for the capture
         factor = rate // C.SAMPLE_RATE
         spec_wide = np.zeros(n * factor, dtype=np.complex128)
@@ -170,8 +196,13 @@ def synthesize(config: dict, traffic: dict, seed: int) -> Pool:
                                   * traffic["cfo_hz_max"] / step) * step)
         t.delay = int(rng.integers(0, MODE.frame_size))
         x = np.roll(carrier_offset(x, t.cfo_hz), t.delay)
-        if center is None:
-            wide = x
+        if center is None:                  # an SDR of its own
+            if rate != C.SAMPLE_RATE:
+                if (n * rate) % C.SAMPLE_RATE:
+                    raise ValueError(f"{rate} Hz: the pool is no whole "
+                                     f"number of samples")
+                x = fft_resample(x, n * rate // C.SAMPLE_RATE)
+            rows.append(quantize_u8(awgn(x, traffic["snr_db"], rng)))
             continue
         off = int(BAND_III[t.block] - center)
         if (off * n) % C.SAMPLE_RATE:
@@ -181,15 +212,12 @@ def synthesize(config: dict, traffic: dict, seed: int) -> Pool:
     if center is not None:
         wide = (np.fft.ifft(spec_wide) * (factor / np.sqrt(n_ens))).astype(
             np.complex64)
-    elif rate != C.SAMPLE_RATE:
-        if (n * rate) % C.SAMPLE_RATE:
-            raise ValueError(f"{rate} Hz: the pool is no whole number of "
-                             f"samples")
-        wide = fft_resample(wide, n * rate // C.SAMPLE_RATE)
-    u8 = quantize_u8(awgn(wide, traffic["snr_db"], rng))
+        rows.append(quantize_u8(awgn(wide, traffic["snr_db"], rng)))
+    u8 = rows[0] if len(rows) == 1 else np.stack(rows)
+    period = u8.shape[-1]
     fpb = int(traffic["frames_per_block"])
     handover = 2 * fpb * MODE.frame_size * rate // C.SAMPLE_RATE
-    reps = -(-(u8.size + handover) // u8.size)
-    return Pool(samples=np.tile(u8, reps), period=u8.size,
+    reps = -(-(period + handover) // period)
+    return Pool(samples=np.tile(u8, reps), period=period,
                 handover=handover, air_s=fpb * MODE.frame_size
                 / C.SAMPLE_RATE, truth=truth)

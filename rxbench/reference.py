@@ -24,12 +24,10 @@ and protection level":
 Both are how ODR-DabMux, a public ETI multiplexer, is recalled to write
 them; the standard's text is not at hand, so this reading stands as
 ``docs/INTEROP.md`` row 8 does, at K-low.  The port
-(``eti/assemble.py::tpl_for_subchannel``) writes a UEP entry's TPL as its
-Table 31 index in 5 bits instead, clamped to 31.  That reading cannot
-represent indices 32-63 (every row from 128 kbit/s up among them), and a
-6-bit field cannot hold the short form's 7 bits (table switch and index),
-so the reference does not follow it: the two disagree on the TPL of a
-UEP entry, and on nothing else, until the port takes this reading.
+(``eti/assemble.py::tpl_for_subchannel``) writes the same.  The Table 31
+index is no reading: it cannot be represented past 31 (every row from 128
+kbit/s up), and a 6-bit field cannot hold the short form's 7 bits (table
+switch and index).
 
 The header CRC covers FC, STC and MNSC; the EOF CRC the MST; both are
 CRC-16/CCITT (init 0xFFFF, complemented).  ERR is 0xFF for a frame

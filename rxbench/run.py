@@ -197,12 +197,13 @@ def run_cell(spec: Spec, cell: dict, seed: int, seconds: float,
             values[entry["name"]] = {"value": value, "unit": entry["unit"]}
 
     bad, missing, lines = 0, 0, []
-    for c, b, w in zip(checks, base, want):
+    for i, (c, b, w) in enumerate(zip(checks, base, want)):
         n_bad, first_bad = c.bad_frames()
         bad += n_bad
         if w:
             missing += max(0, due - (c.count - b))
-        name = c.truth.block or "ensemble"
+        name = c.truth.block or (f"stream {i}" if len(checks) > 1
+                                 else "ensemble")
         lines.append(f"{name}: {c.count} frames, {n_bad} differ from the "
                      f"reference" + (f"; {first_bad}" if first_bad else ""))
     checked = sum(c.count for c in checks)

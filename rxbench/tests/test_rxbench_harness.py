@@ -53,8 +53,11 @@ def test_new_files_are_found_by_name(tiny_root):
     assert spec.reader("new_metric").read(r) == 6.0
     per_layer = [m["name"] for m in spec.metrics("flagship.archive64", True)]
     assert "frontend_ms" not in per_layer and "ingest_ms" in per_layer
-    assert "frontend_ms" in [m["name"] for m in
-                             spec.metrics("flagship.rtl2400", True)]
+    assert [m["name"] for m in spec.metrics("flagship.rtl2400", False)] == [
+        "kernel_ms_per_air_s", "setup_s"]
+    per_layer = [m["name"] for m in spec.metrics("flagship.rtl2400", True)]
+    assert "frontend_ms.host_paced" in per_layer
+    assert "frontend_ms" not in per_layer
     per_layer = [m["name"] for m in spec.metrics("flagship.dab2eti", True)]
     assert "realtime_x.host_paced" in per_layer
     assert "ingest_ms" not in per_layer

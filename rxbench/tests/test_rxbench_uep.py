@@ -122,10 +122,6 @@ def test_mixed_pool_decodes_but_for_the_uep_tpl(mixed_stream):
         assert got[tpl_byte] & 0x03 == want[tpl_byte] & 0x03
 
 
-@pytest.mark.xfail(strict=True, reason=(
-    "the port's eti/assemble.py::tpl_for_subchannel writes a UEP entry's "
-    "TPL as its Table 31 index clamped to 31 (docs/INTEROP.md row 8); the "
-    "reference writes 0x10 | (level - 1)"))
 def test_mixed_stream_is_byte_exact(mixed_stream):
     pool, frames = mixed_stream
     check = StreamCheck(pool.truth[0])
